@@ -1,0 +1,191 @@
+"""The port's SSA/DIVA stress balance against the JAX package on the
+fixture mesh: the host BC tables, the matrix-free operator and its
+block-Jacobi preconditioner on seeded fields, and the full viscosity
+iteration from the cold (zero-velocity) fixture state.
+
+On the CPU the port's stack apply runs the plain version of its kernel;
+the JAX side runs its gather-ELL operators in f64 and its tiled (hi, lo)
+stack in f32."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from torch_port_fixture import (configs, build_meshes, state_to_numpy,
+                                rel_gap)
+
+from ufemism2_tpu.core import mesh_data as jmd
+from ufemism2_tpu.core.ice import ssadiva as jss
+from ufemism2_tpu.core.ice.pc import make_solve_stress_balance as j_make_solve
+from ufemism2_tpu.main.region import ModelRegion as JaxRegion
+
+from ufemism2_tpu_torch.convert import ice_state_from_numpy
+from ufemism2_tpu_torch.core import mesh_data as tmd
+from ufemism2_tpu_torch.core.ice import ssadiva as tss
+from ufemism2_tpu_torch.core.ice.pc import \
+    make_solve_stress_balance as t_make_solve
+from ufemism2_tpu_torch.main.region import _build_bedrock_cdfs
+
+# f64: the same arithmetic on both sides, summation order apart
+# (measured 7e-17 of max|y|).
+F64_TOL = 1e-11
+# f32: both sides round x to bfloat16 alike; the JAX side's coefficients
+# are a bf16 (hi, lo) pair, exact to 2^-17, the port's are plain f32, and
+# each row sums about ten products in another order. Measured 8e-8 of
+# max|y|; the bound allows a little over ten times that.
+F32_TOL = 1e-6
+# Two GMRES runs at rtol 1e-7 with different summation order.
+VEL_TOL = 1e-5
+
+
+class Env:
+    pass
+
+
+@pytest.fixture(scope="module")
+def env():
+    e = Env()
+    e.Cj, e.Ct = configs()
+    e.mesh_j, e.mesh_t = build_meshes()
+    rng = np.random.default_rng(7)
+    nTri = e.mesh_j.nTri
+    # per-triangle fields of the size the viscosity iteration produces
+    e.fields = dict(N=1e9 * (1.0 + rng.random(nTri)),
+                    dNx=1e4 * rng.standard_normal(nTri),
+                    dNy=1e4 * rng.standard_normal(nTri),
+                    beta=1e3 * rng.random(nTri),
+                    u=300.0 * rng.standard_normal(nTri),
+                    v=300.0 * rng.standard_normal(nTri))
+    return e
+
+
+def test_bc_tables_match(env):
+    """Host-side statics: triangle border indices and the BC row
+    classification."""
+    assert np.array_equal(tss.calc_TriBI(env.mesh_t),
+                          jss.calc_TriBI(env.mesh_j))
+    bt, bj = tss.make_bc_data(env.Ct, env.mesh_t), \
+        jss.make_bc_data(env.Cj, env.mesh_j)
+    for name in bt._fields:
+        assert np.array_equal(getattr(bt, name), getattr(bj, name)), name
+    assert bt.free.sum() < env.mesh_t.nTri      # there are border rows
+
+
+@pytest.mark.parametrize("prec", ["f64", "f32"])
+def test_operator_and_preconditioner(env, prec):
+    jd, td, tol = ((jnp.float64, torch.float64, F64_TOL) if prec == "f64"
+                   else (jnp.float32, torch.float32, F32_TOL))
+    mdj = jmd.build_mesh_data(env.mesh_j,
+                              dtype=None if prec == "f64" else jd)
+    mdt = tmd.build_mesh_data(env.mesh_t, dtype=td, device="cpu")
+    jss.register_ssadiva_static(env.Cj, env.mesh_j, mdj)
+    tss.register_ssadiva_static(env.Ct, env.mesh_t, mdt)
+    # the port applies the stack in both precisions
+    assert mdt.M2_stack.n_ops == 5 and mdt.M2_stack.vals.dtype == td
+    J = {k: jnp.asarray(a, jd) for k, a in env.fields.items()}
+    T = {k: torch.as_tensor(a, dtype=td) for k, a in env.fields.items()}
+    args = ("N", "dNx", "dNy", "beta")
+    yj = jss.make_A(mdj, *(J[k] for k in args))((J["u"], J["v"]))
+    yt = tss.make_A(mdt, *(T[k] for k in args))((T["u"], T["v"]))
+    zj = jss.make_precond(mdj, *(J[k] for k in args))((J["u"], J["v"]))
+    zt = tss.make_precond(mdt, *(T[k] for k in args))((T["u"], T["v"]))
+    for a, b in zip(yt + zt, yj + zj):
+        assert a.dtype == td
+        assert rel_gap(a, np.asarray(b)) <= tol
+    # border rows: 'infinite' rows hold sum(neighbours) - n x, every other
+    # border row the identity
+    free = mdt.x("ssa_bc_free").numpy()
+    inf_u = mdt.x("ssa_bc_inf_u").numpy()
+    assert (~free).any() and inf_u.any()
+    TriC, u = env.mesh_t.TriC, np.asarray(T["u"].double())
+    nbr = np.where(TriC >= 0, u[np.maximum(TriC, 0)], 0.0).sum(axis=1) \
+        - (TriC >= 0).sum(axis=1) * u
+    want = np.where(inf_u, nbr, u)[~free]
+    assert rel_gap(yt[0][torch.from_numpy(~free)].double(), want) <= tol
+
+
+@pytest.fixture(scope="module")
+def cold(env):
+    """The fixture state before any stress-balance solve, on both sides,
+    and each side's DIVA solve function."""
+    Cj0, _ = configs(choice_stress_balance_approximation="none")
+    rj = JaxRegion(Cj0, "ANT", mesh=env.mesh_j)
+    sj = rj.state
+    st = ice_state_from_numpy(state_to_numpy(sj), device="cpu",
+                              dtype=torch.float64)
+    mdt = tmd.build_mesh_data(env.mesh_t, dtype=torch.float64, device="cpu")
+    c = Env()
+    c.mdj, c.mdt, c.sj, c.st = rj.md, mdt, sj, st
+    c.cdfs_j = rj._bedrock_cdfs
+    c.cdfs_t = _build_bedrock_cdfs(env.Ct, env.mesh_t, "ANT", mdt)
+    c.solve_j = jax.jit(j_make_solve(env.Cj, c.mdj, bedrock_cdfs=c.cdfs_j))
+    c.solve_t = t_make_solve(env.Ct, c.mdt, bedrock_cdfs=c.cdfs_t)
+    return c
+
+
+def _solve_both(c, sj, st):
+    oj = c.solve_j(c.mdj, sj.Hi, sj.Hs, sj.Hb, sj.SL, sj.Ti, sj)
+    ot = c.solve_t(c.mdt, st.Hi, st.Hs, st.Hb, st.SL, st.Ti, st)
+    return oj, ot
+
+
+def _check_solve(oj, ot):
+    assert ot[4] == int(oj[4]) > 0                       # n_visc_its
+    assert abs(ot[5] - int(oj[5])) <= 0.02 * int(oj[5])  # n_Axb_its
+    umax = max(np.abs(np.asarray(oj[0])).max(),
+               np.abs(np.asarray(oj[1])).max())
+    assert umax > 1.0                                    # m/yr: real flow
+    for i in range(4):
+        bj = np.asarray(oj[i])
+        assert np.abs(ot[i].numpy() - bj).max() <= VEL_TOL * umax
+    for k in ("visc_tau_bx", "visc_tau_by", "visc_eta_3D_b"):
+        assert rel_gap(ot[6][k], np.asarray(oj[6][k])) <= VEL_TOL
+
+
+def test_diva_solve_cold_then_warm(env, cold):
+    """The whole viscosity iteration from zero velocity, then again from
+    its own result (the warm-start carry): same iteration counts, same
+    velocities, and the warm solve needs fewer Krylov iterations."""
+    oj, ot = _solve_both(cold, cold.sj, cold.st)
+    _check_solve(oj, ot)
+    assert ot[2].shape == (env.mesh_t.nTri, env.Ct.nz)
+    warm = lambda s, o: s.replace(u_vav_b=o[0], v_vav_b=o[1], u_3D_b=o[2],
+                                  v_3D_b=o[3], **o[6])
+    oj2, ot2 = _solve_both(cold, warm(cold.sj, oj), warm(cold.st, ot))
+    _check_solve(oj2, ot2)
+    assert ot2[5] < ot[5]
+
+
+def test_ssa_solve_and_no_sliding(env, cold):
+    Cj, Ct = configs(choice_stress_balance_approximation="SSA")
+    sj, st = cold.sj, cold.st
+    oj = jax.jit(j_make_solve(Cj, cold.mdj, bedrock_cdfs=cold.cdfs_j))(
+        cold.mdj, sj.Hi, sj.Hs, sj.Hb, sj.SL, sj.Ti, sj)
+    ot = t_make_solve(Ct, cold.mdt, bedrock_cdfs=cold.cdfs_t)(
+        cold.mdt, st.Hi, st.Hs, st.Hb, st.SL, st.Ti, st)
+    _check_solve(oj, ot)
+    # SSA without sliding: zero velocity, no solve
+    _, Cn = configs(choice_stress_balance_approximation="SSA",
+                    choice_sliding_law="no_sliding")
+    on = t_make_solve(Cn, cold.mdt, bedrock_cdfs=cold.cdfs_t)(
+        cold.mdt, st.Hi, st.Hs, st.Hb, st.SL, st.Ti, st)
+    assert on[4] == on[5] == 0
+    assert float(on[0].abs().max()) == float(on[2].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("over, word", [
+    (dict(choice_stress_balance_approximation="SIA/SSA"), "SIA/SSA"),
+    (dict(choice_stress_balance_approximation="SIA"), "SIA"),
+    (dict(choice_stress_balance_approximation="BPA"), "BPA"),
+    (dict(BC_ice_front="ocean_pressure"), "ocean_pressure"),
+    (dict(tpu_stress_balance_precond="block_dense"), "block_dense"),
+    (dict(tpu_stress_balance_precond="two_level"), "two_level"),
+])
+def test_unported_choices_raise_by_name(env, over, word):
+    _, Ct = configs(**over)
+    mdt = tmd.build_mesh_data(env.mesh_t, dtype=torch.float64, device="cpu")
+    with pytest.raises(NotImplementedError, match=word):
+        t_make_solve(Ct, mdt)

@@ -1,0 +1,103 @@
+"""Shared set-up of the PyTorch-port parity tests (not a test file).
+
+One coarse MISMIP_mod DIVA configuration (64 km at the grounding line,
+about 1.1k vertices), built once per test module in the JAX package and
+handed to the port as numpy: both sides then run on the identical mesh
+and the identical host tables.
+"""
+
+import dataclasses
+
+import numpy as np
+
+FIXTURE = dict(
+    choice_refgeo_init_ANT="idealised",
+    choice_refgeo_init_idealised="MISMIP_mod",
+    choice_refgeo_PD_ANT="idealised",
+    choice_refgeo_PD_idealised="MISMIP_mod",
+    refgeo_idealised_MISMIP_mod_Hi_init=100.0,
+    dx_refgeo_init_idealised=32e3,
+    choice_mask_noice="MISMIP_mod",
+    uniform_Glens_flow_factor=1e-16,
+    choice_ice_rheology_Glen="uniform",
+    choice_thermo_model="none",
+    choice_initial_ice_temperature_ANT="uniform",
+    xmin_ANT=-1000e3, xmax_ANT=1000e3, ymin_ANT=-1000e3, ymax_ANT=1000e3,
+    maximum_resolution_uniform=200e3,
+    maximum_resolution_grounded_ice=128e3,
+    maximum_resolution_floating_ice=200e3,
+    maximum_resolution_grounding_line=64e3, grounding_line_width=64e3,
+    maximum_resolution_calving_front=128e3, calving_front_width=128e3,
+    maximum_resolution_ice_front=128e3, ice_front_width=128e3,
+    nit_Lloyds_algorithm=2, allow_mesh_updates=False,
+    choice_SMB_model_ANT="uniform", uniform_SMB=0.3,
+    choice_BMB_model_ANT="uniform", uniform_BMB=0.0,
+    visc_it_nit=3, pc_nit_max=2,
+)
+
+
+def configs(**over):
+    """(JAX-package Config, port Config) of the fixture with overrides."""
+    from ufemism2_tpu.config import Config as CJ
+    from ufemism2_tpu_torch.config import Config as CT
+    kw = dict(FIXTURE, **over)
+    return CJ(**kw), CT(**kw)
+
+
+def mesh_to_numpy(mesh):
+    """A host Mesh of the JAX package as a dict of numpy arrays/scalars."""
+    return {f.name: getattr(mesh, f.name) for f in dataclasses.fields(mesh)
+            if f.name not in ("operators", "device")}
+
+
+def build_meshes():
+    """(JAX-package mesh, port mesh): the same mesh, each with its own
+    package's operators."""
+    from ufemism2_tpu.mesh import build_mesh_from_config
+    from ufemism2_tpu_torch.convert import mesh_from_numpy
+    Cj, _ = configs()
+    mesh_j = build_mesh_from_config(Cj, "ANT")
+    mesh_t = mesh_from_numpy(mesh_to_numpy(mesh_j))
+    return mesh_j, mesh_t
+
+
+def bedrock_cdfs_numpy(mesh_j):
+    """The JAX package's host bedrock-CDF tables for the fixture mesh."""
+    from ufemism2_tpu.core.ice.bedrock_cdf import \
+        build_bedrock_cdfs_from_config
+    Cj, _ = configs()
+    cdf_a, cdf_b = build_bedrock_cdfs_from_config(Cj, mesh_j, "ANT")
+    return np.asarray(cdf_a), np.asarray(cdf_b)
+
+
+def state_to_numpy(s):
+    """A JAX IceState as the dict `convert.ice_state_from_numpy` takes."""
+    out = {}
+    for name in s.__dataclass_fields__:
+        v = getattr(s, name)
+        if name == "pc":
+            out["pc"] = {k: np.asarray(getattr(v, k))
+                         for k in v.__dataclass_fields__}
+        else:
+            out[name] = np.asarray(v)
+    return out
+
+
+def rel_gap(a, b):
+    """max|a - b| / max|b| (0 when both vanish); a may be a tensor."""
+    a = np.asarray(a.detach().cpu().numpy() if hasattr(a, "detach") else a,
+                   dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    den = np.abs(b).max() if b.size else 0.0
+    gap = np.abs(a - b).max() if b.size else 0.0
+    return gap / den if den > 0 else gap
+
+
+def ell_to_dense(M, op=0):
+    """Dense numpy matrix of operator `op` of the port's EllStack."""
+    cols = M.cols.cpu().numpy()
+    rows = np.broadcast_to(np.arange(M.n_rows)[None, :], cols.shape)
+    out = np.zeros((M.n_rows, M.n_cols), M.vals.cpu().numpy().dtype)
+    np.add.at(out, (rows, cols), M.vals[op].cpu().numpy())
+    return out

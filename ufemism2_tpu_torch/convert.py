@@ -1,0 +1,75 @@
+"""Carry state, meshes and operators into the port from plain numpy.
+
+The port never sees a foreign array type: whoever holds a mesh, a state
+or operators elsewhere (the parity tests hold the reference package's)
+turns them into numpy / scipy objects first and hands those over here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .core.ice.state import IceState, PCState
+from .mesh.mesh_types import Mesh
+from .ops import resolve_device
+from .ops.sparse import EllStack, ell_stack_from_csr
+
+_HOST_SCALARS = {"t_Hi_prev": float, "t_Hi_next": float, "dt_ice": float,
+                 "n_visc_its": int, "n_Axb_its": int}
+_PC_SCALARS = ("dt_n", "dt_np1", "eta_n", "eta_np1")
+
+
+def _tensor(a, device, dtype):
+    # torch.tensor copies: the source may be a read-only view of a buffer
+    # that another library owns
+    a = np.asarray(a)
+    if a.dtype == np.bool_:
+        return torch.tensor(a, device=device)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.tensor(a, dtype=torch.int32, device=device)
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
+def ice_state_from_numpy(fields: dict, device, dtype) -> IceState:
+    """The port's IceState from a dict keyed by IceState field names; the
+    controller state sits under 'pc' as a dict keyed by PCState field
+    names. Time and counter fields become host floats and ints."""
+    device = resolve_device(device)
+    kw = {}
+    for f in dataclasses.fields(IceState):
+        v = fields[f.name]
+        if f.name == "pc":
+            kw["pc"] = PCState(**{
+                k: (float(np.asarray(v[k])) if k in _PC_SCALARS
+                    else _tensor(v[k], device, dtype))
+                for k in (g.name for g in dataclasses.fields(PCState))})
+        elif f.name in _HOST_SCALARS:
+            kw[f.name] = _HOST_SCALARS[f.name](np.asarray(v))
+        else:
+            kw[f.name] = _tensor(v, device, dtype)
+    return IceState(**kw)
+
+
+def mesh_from_numpy(arrays: dict) -> Mesh:
+    """The port's host Mesh from a dict keyed by Mesh field names (numpy
+    arrays and plain scalars). Operators are not carried: the port builds
+    its own from the mesh."""
+    kw = {}
+    for f in dataclasses.fields(Mesh):
+        if f.name in ("operators", "device") or f.name not in arrays:
+            continue
+        v = arrays[f.name]
+        if v is None or isinstance(v, (int, float, tuple)):
+            kw[f.name] = v
+        else:
+            kw[f.name] = np.array(v)
+    return Mesh(**kw)
+
+
+def ell_from_scipy(mats, device, dtype) -> EllStack:
+    """An EllStack over the union pattern of a list of scipy matrices of
+    one shape."""
+    return ell_stack_from_csr(list(mats), dtype=dtype, device=device)
