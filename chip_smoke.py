@@ -12,15 +12,23 @@ of which ends the run with a non-zero exit if it fails:
               config_MISMIP_8km_spinup_for_scaling.cfg, which is not in
               the repository: same geometry, physics choices and
               grounding-line resolution, written inline).
-4. kernels  - stack_spmv against its plain tensor version on the card at
-              the shapes the main path uses, with timings, the bound, and
-              torch.sparse.mm as the library yardstick.
+4. kernels  - stack_spmv and diva_apply (the DIVA operator fused onto it)
+              against their plain tensor versions on the card at the 8 km
+              shapes, with timings and the bound; torch.sparse.mm is the
+              library yardstick of stack_spmv (no one PyTorch call computes
+              diva_apply).
 5. small    - the coarse 64 km configuration in f64 on the card (CUDA
               kernel) against the same run on the CPU (plain version).
 6. main     - ModelRegion(C, "ANT") on the card in f32 (initial DIVA
               solve from zero velocity), then run_to through the start-up
               transient and over a measured window of model years, with
-              the kernel launch counts read around it.
+              the kernels' launch counts read around it: diva_apply once
+              per GMRES operator apply, stack_spmv for the single-operator
+              applies of the viscosity iteration. The f32 solves end at
+              their precision floor, so their iteration counts follow
+              the operator's every rounding: the run is held to the
+              counts below, which the operator as one stack_spmv launch
+              and separate launches for the scaling gave as well.
 7. profile  - only with --profile N: N more ice steps under
               torch.profiler; device busy share and the kernels by device
               time (the profiler's own table goes to --profile-out).
@@ -31,6 +39,7 @@ The last line of standard output is
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -44,6 +53,9 @@ H100_FLOPS = {torch.float32: 67e12,      # f32 outside the tensor cores
 T_WARM = 20.0      # model years of start-up transient before the window
 WINDOW = 40.0      # model years of the measured window
 REPS = 200         # launches per kernel timing
+# GMRES iterations of the initial solve and Krylov iterations of the window
+# on the FULL configuration, and the grounding line after it [km]
+INIT_GMRES_ITS, WINDOW_AXB_ITS, X_GL_KM = 3286, 1568, 457.457
 
 # The main path's configuration: MISMIP_mod geometry, DIVA, Zoet-Iverson
 # sliding, bilinear-TAF + bedrock-CDF grounded fractions, semi-implicit
@@ -161,11 +173,14 @@ def kernel_case(name, A_mats, x_np, dtype, round_x):
     tol = (1e-5 if dtype == torch.float32 else 1e-12) * scale
     ok = bool(torch.isfinite(y).all()) and err <= tol
 
-    ms = time_ms(lambda: cuda_spmv.stack_spmv(
-        S.cols, S.vals, x, round_x_bf16=round_x), REPS)
+    # timed as the model calls it: through the operator object, whose
+    # tables were checked when it was built
+    assert torch.equal(S.apply(x, exact=not round_x), y)
+    n0 = cuda_spmv.launches
+    ms = time_ms(lambda: S.apply(x, exact=not round_x), REPS)
     n1 = cuda_spmv.launches
-    device_ms = graph_ms(lambda: cuda_spmv.stack_spmv(
-        S.cols, S.vals, x, round_x_bf16=round_x), REPS)
+    assert n1 == n0 + 50 + REPS
+    device_ms = graph_ms(lambda: S.apply(x, exact=not round_x), REPS)
     # launches recorded into the graph counted once each, replays not
     assert cuda_spmv.launches == n1 + REPS + 3
     plain_ms = time_ms(lambda: cuda_spmv.stack_spmv_plain(
@@ -202,7 +217,8 @@ def kernel_case(name, A_mats, x_np, dtype, round_x):
                round_x_bf16=round_x, max_abs_err=err, tol=tol,
                max_abs_y=scale, ms=ms, device_ms=device_ms,
                plain_ms=plain_ms,
-               library_ms=library_ms, bytes=nbytes, flops=flops,
+               library_ms=library_ms, eager_over_library=ms / library_ms,
+               bytes=nbytes, flops=flops,
                bound_ms=max(t_bytes, t_flops),
                bound_by="bytes" if t_bytes >= t_flops else "operations",
                ok=ok)
@@ -210,6 +226,95 @@ def kernel_case(name, A_mats, x_np, dtype, round_x):
     if not ok:
         raise SystemExit(f"stack_spmv disagrees with its plain version in "
                          f"case {name}: err {err:.3e} > tol {tol:.3e}")
+    return out
+
+
+def diva_operands(mesh, m2, dtype, rng):
+    """Operands of one diva_apply comparison at the mesh's size: random
+    per-triangle fields of the sizes the viscosity iteration produces, a
+    random (u, v), and row kinds in which free, 'infinite' and identity
+    rows all occur (a fifth of the rows are boundary rows, of either kind
+    per component)."""
+    from ufemism2_tpu_torch.ops import cuda_spmv
+    from ufemism2_tpu_torch.ops.sparse import ell_stack_from_csr
+    n = mesh.nTri
+    S = ell_stack_from_csr(m2, dtype=dtype, device="cuda")
+    dev = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device="cuda")
+    mask = mesh.TriC >= 0
+    free = rng.random(n) > 0.2
+    inf_u = ~free & (rng.random(n) < 0.5)
+    inf_v = ~free & (rng.random(n) < 0.5)
+    assert (~free & ~inf_u).any() and inf_u.any() and inf_v.any()
+    rows = cuda_spmv.DivaRows(
+        dev(np.where(mask, mesh.TriC, 0), torch.int64), dev(mask, torch.bool),
+        dev(free, torch.bool), dev(inf_u, torch.bool), dev(inf_v, torch.bool))
+    fields = (dev(1e9 * (1.0 + rng.random(n))),
+              dev(1e4 * rng.standard_normal(n)),
+              dev(1e4 * rng.standard_normal(n)), dev(1e3 * rng.random(n)))
+    x = dev(300.0 * rng.standard_normal(2 * n))
+    return S, rows, fields, x
+
+
+def diva_case(name, mesh, m2, dtype, round_x, rng):
+    """One diva_apply comparison: kernel vs plain on the same operands,
+    plus the roofline bound for this data."""
+    from ufemism2_tpu_torch.ops import cuda_spmv
+    S, rows, fields, x = diva_operands(mesh, m2, dtype, rng)
+    n = mesh.nTri
+    A = cuda_spmv.DivaOperator(S.op, rows, *fields, round_x_bf16=round_x)
+    n0 = cuda_spmv.diva_launches
+    y = A.flat(x)
+    yu, yv = A((x[:n], x[n:]))
+    torch.cuda.synchronize()
+    assert cuda_spmv.diva_launches == n0 + 2
+    assert torch.equal(torch.cat([yu, yv]), y)
+    plain = lambda: cuda_spmv.diva_apply_plain(
+        (S.cols, S.vals), rows, *fields, x[:n], x[n:], round_x)
+    y_ref = torch.cat(plain())
+    torch.cuda.synchronize()
+    assert y.shape == y_ref.shape and y.dtype == dtype
+    scale = float(y_ref.abs().max())
+    err = float((y - y_ref).abs().max())
+    # the kernel's k-loop, its fused multiply-adds and the plain version's
+    # reductions sum in different orders: a few ulps of the largest result
+    tol = (1e-5 if dtype == torch.float32 else 1e-12) * scale
+    # rows that are not free hold copies and three-term sums of the
+    # unrounded operand, added in the plain version's order: equal to it
+    # to the bit
+    bdry = torch.cat([~rows.free, ~rows.free])
+    err_bdry = float((y - y_ref)[bdry].abs().max())
+    ok = bool(torch.isfinite(y).all()) and err <= tol and err_bdry == 0.0
+
+    ms = time_ms(lambda: A.flat(x), REPS)
+    n1 = cuda_spmv.diva_launches
+    device_ms = graph_ms(lambda: A.flat(x), REPS)
+    assert cuda_spmv.diva_launches == n1 + REPS + 3
+    plain_ms = time_ms(plain, max(REPS // 10, 5))
+
+    size = x.element_size()
+    nnz = int(sum(abs(m) for m in m2).tocsr().nnz)
+    n_bdry = int((~rows.free).sum())
+    # in: the shared index table and five coefficient tables, u, v, four
+    # fields, the row code and the boundary rows' neighbour table;
+    # out: Au, Av
+    nbytes = (nnz * 4 + 5 * nnz * size + 6 * n * size + n
+              + n_bdry * 12 + 2 * n * size)
+    flops = 2 * 5 * nnz * 2 + 30 * n
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_flops = flops / H100_FLOPS[dtype] * 1e3
+    out = dict(case=name, n_rows=n, K=S.K, nnz=nnz, boundary_rows=n_bdry,
+               dtype=str(dtype).replace("torch.", ""), round_x_bf16=round_x,
+               max_abs_err=err, tol=tol, max_abs_y=scale,
+               max_abs_err_boundary=err_bdry, ms=ms, device_ms=device_ms,
+               plain_ms=plain_ms, library_ms=None, bytes=nbytes, flops=flops,
+               bound_ms=max(t_bytes, t_flops),
+               bound_by="bytes" if t_bytes >= t_flops else "operations",
+               ok=ok)
+    say("diva_case", **out)
+    if not ok:
+        raise SystemExit(f"diva_apply disagrees with its plain version in "
+                         f"case {name}: err {err:.3e} > tol {tol:.3e} or "
+                         f"boundary rows differ by {err_bdry:.3e}")
     return out
 
 
@@ -253,7 +358,6 @@ def profile_steps(region, n_steps, table_path=None):
     a pure function of the state): once timed without the profiler, once
     under torch.profiler. Prints the device's busy share of the
     unprofiled wall time and the kernels by device time."""
-    import os
     from torch.profiler import profile, ProfilerActivity
 
     def steps():
@@ -326,8 +430,9 @@ def main():
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    built = cuda_spmv.build_kernel()
-    say("build", seconds=time.perf_counter() - t0, library=built.name)
+    cuda_spmv.load_kernels()
+    say("build", seconds=time.perf_counter() - t0,
+        source="ufemism2_tpu_torch/csrc/stack_spmv.cu")
 
     # -- 3. mesh (host) ----------------------------------------------------
     C = Config(**FULL)
@@ -359,7 +464,16 @@ def main():
                                      [ops.M_map_a_b], x_a, dtype, rnd))
             cases.append(kernel_case(f"M_map_b_a_1op_d{C.nz}_{tag}",
                                      [ops.M_map_b_a], x_3d, dtype, rnd))
-    hot = cases[0]         # the call make_A makes once per Krylov iteration
+    diva_cases = [diva_case(f"diva_apply_{tag}", mesh, m2, dtype, rnd, rng)
+                  for tag, dtype, rnd in (
+                      ("float32_bf16x", torch.float32, True),
+                      ("float32", torch.float32, False),
+                      ("float64", torch.float64, False))]
+    # the calls the main path makes: the fused operator once per Krylov
+    # iteration, and of the single-operator applies the largest
+    hot_diva = diva_cases[0]
+    hot = next(c for c in cases
+               if c["case"] == f"M_map_b_a_1op_d{C.nz}_float32_bf16x")
 
     # -- 5. small configuration: card (kernel) against CPU (plain) ---------
     Cs = Config(**SMALL)
@@ -401,6 +515,7 @@ def main():
     ssadiva.gmres = gmres_counted
 
     cuda_spmv.launches = 0
+    cuda_spmv.diva_launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     region = ModelRegion(C, "ANT", mesh=mesh)      # device defaults to cuda
@@ -409,7 +524,8 @@ def main():
     init_its, init_calls = gm["its"], gm["calls"]
     say("initial_solve", seconds=init_s, gmres_its=init_its,
         gmres_calls=init_calls,
-        launches=cuda_spmv.launches,
+        stack_spmv_launches=cuda_spmv.launches,
+        diva_apply_launches=cuda_spmv.diva_launches,
         max_speed=float(torch.sqrt(region.state.u_vav_b ** 2
                                    + region.state.v_vav_b ** 2).max()))
     # start-up transient (dt grows from dt_ice_min), then the measured
@@ -429,12 +545,14 @@ def main():
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = cuda_spmv.launches
+    diva_launches = cuda_spmv.diva_launches
     ssadiva.gmres = gmres_inner
 
     n_tensors = check_state(state, "cuda")
     volume = float((state.Hi * region.md.A).sum())
     w_axb = state.n_Axb_its - warm["n_axb"]
     w_steps = region.n_dt_ice - warm["steps"]
+    x_GL_km = find_x_GL(mesh, state.TAF) / 1e3
     say("main_path", nV=mesh.nV, nTri=mesh.nTri, mesh_build_s=mesh_s,
         precision=C.tpu_precision, initial_solve_s=init_s,
         initial_solve_ms_per_krylov_it=init_s * 1e3 / max(init_its, 1),
@@ -445,18 +563,30 @@ def main():
         n_visc_its=state.n_visc_its - warm["n_visc"], n_Axb_its=w_axb,
         gmres_its=gm["its"] - warm["gmres"],
         ms_per_krylov_it=run_s * 1e3 / max(w_axb, 1),
-        dt_ice=state.dt_ice, x_GL_km=find_x_GL(mesh, state.TAF) / 1e3,
+        dt_ice=state.dt_ice, x_GL_km=x_GL_km,
         steps_total=region.n_dt_ice, n_Axb_its_total=state.n_Axb_its,
         gmres_its_total=gm["its"],
-        stack_spmv_launches=launches,
+        gmres_calls_total=gm["calls"],
+        stack_spmv_launches=launches, diva_apply_launches=diva_launches,
         ice_volume_m3=volume, state_tensors_checked=n_tensors,
         peak_device_MiB=torch.cuda.max_memory_allocated() / 2 ** 20)
     assert w_steps >= 1 and warm["steps"] >= 1, "no ice step was taken"
     assert volume > 0.0, "ice volume is not positive"
     assert w_axb > 0 and state.n_visc_its > warm["n_visc"]
-    assert launches >= gm["its"] > 0, \
+    # GMRES applies the operator once per counted iteration and once more
+    # per solve (the residual before the first cycle); every viscosity
+    # iteration (one GMRES solve each) makes 16 single-operator applies
+    assert diva_launches == gm["its"] + gm["calls"] and gm["its"] > 0, \
+        "the main path did not go through diva_apply"
+    assert launches > 16 * gm["calls"] > 0, \
         "the main path did not go through stack_spmv"
     assert region.md.device.type == "cuda"
+    assert (init_its, w_axb) == (INIT_GMRES_ITS, WINDOW_AXB_ITS) \
+        and abs(x_GL_km - X_GL_KM) < 0.01, \
+        (f"the f32 trajectory moved: {init_its} initial GMRES iterations, "
+         f"{w_axb} Krylov iterations in the window, x_GL {x_GL_km:.3f} km "
+         f"(expected {INIT_GMRES_ITS}, {WINDOW_AXB_ITS}, {X_GL_KM}): the "
+         "rounding or the summation order of the operator changed")
 
     # -- 7. profile (optional) ---------------------------------------------
     if args.profile > 0:
@@ -472,6 +602,17 @@ def main():
         "plain_ms": hot["plain_ms"], "bound_ms": hot["bound_ms"],
         "bound_by": hot["bound_by"], "library_ms": hot["library_ms"],
         "timed_case": hot["case"], "cases": cases,
+    }, {
+        "name": "diva_apply", "route": "cuda",
+        "source": "ufemism2_tpu_torch/csrc/stack_spmv.cu",
+        "replaces": "ufemism2_tpu/ops/pallas_spmv.py:57",
+        "fuses": "ufemism2_tpu/core/ice/ssadiva.py:208",
+        "launches": diva_launches,
+        "max_abs_err": hot_diva["max_abs_err"], "ms": hot_diva["ms"],
+        "device_ms": hot_diva["device_ms"],
+        "plain_ms": hot_diva["plain_ms"], "bound_ms": hot_diva["bound_ms"],
+        "bound_by": hot_diva["bound_by"], "library_ms": None,
+        "timed_case": hot_diva["case"], "cases": diva_cases,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line, flush=True)

@@ -98,6 +98,24 @@ def test_gmres_on_uv_tuple_matches_jax():
         c = np.asarray(c)
         assert np.abs(a.numpy() - c).max() <= SOL_TOL * np.abs(c).max()
 
+    # an operator that offers itself on the flat vector is applied through
+    # `flat` and through nothing else; same iterations, same bits
+    class Flat:
+        calls = 0
+
+        def __call__(self, uv):
+            raise AssertionError("gmres took the tuple form")
+
+        def flat(self, x):
+            Flat.calls += 1
+            return Mt @ x
+
+    rf = tk.gmres(Flat(), (torch.from_numpy(b[:n]), torch.from_numpy(b[n:])),
+                  x0=(torch.from_numpy(x0[:n]), torch.from_numpy(x0[n:])),
+                  M=lambda r: (dt_[:n] * r[0], dt_[n:] * r[1]), **kw)
+    assert rf.n_iter == rt.n_iter and Flat.calls == rt.n_iter + 1
+    assert all(torch.equal(a, c) for a, c in zip(rf.x, rt.x))
+
 
 @pytest.mark.parametrize("kind", ["spd", "nonsym"])
 def test_bicgstab_matches_jax(kind):

@@ -25,7 +25,8 @@ from ufemism2_tpu.ops.pallas_spmv import grouped_apply_pallas
 
 from ufemism2_tpu_torch.convert import ell_from_scipy
 from ufemism2_tpu_torch.ops import cuda_spmv
-from ufemism2_tpu_torch.ops.sparse import EllMatrix, ell_from_csr, exact_mv
+from ufemism2_tpu_torch.ops.sparse import (EllMatrix, EllStack, ell_from_csr,
+                                           exact_mv)
 
 # The JAX side stores f32 coefficients as a bf16 (hi, lo) pair, exact to
 # 2^-17 relative; 3e-5 of max|y| is its own test's bound for that
@@ -176,14 +177,29 @@ def test_M2_stack_of_a_small_mesh(small_mesh_ops, dtype):
 
 
 def test_wrapper_checks_and_counts():
-    """Shape, dtype and device checks; on the CPU the wrapper takes the
-    plain version and launches (and counts) nothing."""
+    """Shape, dtype and device checks - those of the tables alone when the
+    operator is built, those of x on each call; on the CPU the wrapper
+    takes the plain version and launches (and counts) nothing."""
     S = ell_from_scipy(_mats(2, n=64), device="cpu", dtype=torch.float32)
     x = torch.zeros(64)
     before = cuda_spmv.launches
     y = cuda_spmv.stack_spmv(S.cols, S.vals, x)
     assert y.shape == (2, 64)
+    assert torch.equal(S.apply(x, exact=True), y)
+    assert torch.equal(S.op(x), y)
     assert cuda_spmv.launches == before
+    # once, at construction: tables that do not match
+    with pytest.raises(ValueError):
+        EllStack(S.cols[:, :10], S.vals, S.n_cols)
+    with pytest.raises(ValueError):
+        cuda_spmv.StackOperator(S.cols, S.vals[0])
+    with pytest.raises(ValueError):
+        S.to("meta")              # neither the CPU nor a CUDA device
+    # per call: what depends on x
+    with pytest.raises(TypeError):
+        S.op(x.double())
+    with pytest.raises(ValueError):
+        S.op(x.to("meta"))
     with pytest.raises(TypeError):
         cuda_spmv.stack_spmv(S.cols, S.vals, x.double())
     with pytest.raises(TypeError):

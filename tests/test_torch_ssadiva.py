@@ -107,6 +107,135 @@ def test_operator_and_preconditioner(env, prec):
     assert rel_gap(yt[0][torch.from_numpy(~free)].double(), want) <= tol
 
 
+# Border-row choices: the schema's default makes every border row
+# 'infinite'; the mixed case has free, 'infinite' and 'zero' (identity)
+# rows at once, and rows whose u and v kinds differ.
+BC_CASES = {
+    "all_infinite": {},
+    "mixed": dict(BC_u_west="zero", BC_v_west="infinite",
+                  BC_u_south="zero", BC_v_south="zero",
+                  BC_u_north="infinite", BC_v_north="zero"),
+}
+# f32 with the rounding on: as F32_TOL above (both sides round the
+# derivative operand to bfloat16 alike and leave beta * u unrounded).
+DIVA_TOL = {"f64": 1e-12, "f32": F32_TOL}
+
+
+def _both_operators(env, prec, bc, fields=None):
+    """make_A of both packages on the fixture mesh and seeded fields;
+    returns (port md, port fields, JAX result, port operator)."""
+    jd, td = ((jnp.float64, torch.float64) if prec == "f64"
+              else (jnp.float32, torch.float32))
+    Cj, Ct = configs(**BC_CASES[bc])
+    mdj = jmd.build_mesh_data(env.mesh_j,
+                              dtype=None if prec == "f64" else jd)
+    mdt = tmd.build_mesh_data(env.mesh_t, dtype=td, device="cpu")
+    jss.register_ssadiva_static(Cj, env.mesh_j, mdj)
+    tss.register_ssadiva_static(Ct, env.mesh_t, mdt)
+    fields = fields or env.fields
+    J = {k: jnp.asarray(a, jd) for k, a in fields.items()}
+    T = {k: torch.as_tensor(a, dtype=td) for k, a in fields.items()}
+    args = ("N", "dNx", "dNy", "beta")
+    yj = jss.make_A(mdj, *(J[k] for k in args))((J["u"], J["v"]))
+    A = tss.make_A(mdt, *(T[k] for k in args))
+    return mdt, T, yj, A
+
+
+@pytest.mark.parametrize("bc", list(BC_CASES))
+@pytest.mark.parametrize("prec", ["f64", "f32"])
+def test_diva_apply_plain_matches_jax(env, prec, bc):
+    """The operator make_A gives on the CPU (diva_apply_plain) against
+    the JAX package's, on both call forms, with every row kind the BC
+    choices make."""
+    mdt, T, yj, A = _both_operators(env, prec, bc)
+    free = mdt.x("ssa_bc_free")
+    inf_u, inf_v = mdt.x("ssa_bc_inf_u"), mdt.x("ssa_bc_inf_v")
+    assert free.any() and (~free & inf_u).any()
+    if bc == "mixed":
+        assert (~free & ~inf_u).any() and (~free & ~inf_v).any()
+        assert (~free & (inf_u != inf_v)).any()
+    yt = A((T["u"], T["v"]))
+    for a, b in zip(yt, yj):
+        assert a.dtype == T["u"].dtype
+        assert rel_gap(a, np.asarray(b)) <= DIVA_TOL[prec]
+    # the flat form gmres uses is the same operator
+    yf = A.flat(torch.cat([T["u"], T["v"]]))
+    assert torch.equal(yf, torch.cat(yt))
+    # identity rows copy the unrounded operand exactly
+    ident = ~free & ~inf_u
+    assert torch.equal(yt[0][ident], T["u"][ident])
+    # the row tables the kernel reads say what the masks say
+    rows = mdt.x("ssa_diva_rows")
+    code = rows.code.numpy()
+    assert np.array_equal(code == 0, free.numpy())
+    assert np.array_equal((code & 2) != 0, (~free & inf_u).numpy())
+    assert np.array_equal((code & 4) != 0, (~free & inf_v).numpy())
+    assert np.array_equal(rows.tric32.numpy(), env.mesh_t.TriC)
+    assert A.rows is rows                   # built once per mesh data
+
+
+def test_friction_term_takes_the_unrounded_velocity(env):
+    """In f32 the derivative terms see (u, v) rounded to bfloat16, but
+    beta_eff * u does not: with a friction that dominates every other
+    term, A u is -beta * u to f32 accuracy, which the rounded u (2^-9
+    relative) would miss a thousandfold."""
+    fields = dict(env.fields, beta=np.full_like(env.fields["beta"], 1e12),
+                  N=np.full_like(env.fields["N"], 1e3),
+                  dNx=np.zeros_like(env.fields["dNx"]),
+                  dNy=np.zeros_like(env.fields["dNy"]))
+    mdt, T, yj, A = _both_operators(env, "f32", "all_infinite", fields)
+    free = mdt.x("ssa_bc_free")
+    Au, _ = A((T["u"], T["v"]))
+    want = (-T["beta"] * T["u"])[free]
+    u_r = T["u"].to(torch.bfloat16).to(torch.float32)
+    wrong = (-T["beta"] * u_r)[free]
+    assert rel_gap(Au[free], want.numpy()) < 1e-6
+    assert rel_gap(wrong, want.numpy()) > 1e-4      # the test can tell
+    assert rel_gap(Au, np.asarray(yj[0])) <= F32_TOL
+
+
+def test_diva_operator_checks():
+    """What depends only on the operator is checked when it is built,
+    what depends on x per call; on the CPU nothing is launched."""
+    from ufemism2_tpu_torch.ops import cuda_spmv
+    from ufemism2_tpu_torch.ops.sparse import ell_stack_from_csr
+    import scipy.sparse as sp
+    n = 12
+    mats = [sp.eye(n, format="csr") * (i + 1.0) for i in range(5)]
+    S = ell_stack_from_csr(mats, dtype=torch.float64, device="cpu")
+    z = torch.zeros(n, dtype=torch.bool)
+    TriC = torch.zeros((n, 3), dtype=torch.int64)
+    rows = cuda_spmv.DivaRows(TriC, TriC > 0, ~z, z, z)
+    f = [torch.ones(n, dtype=torch.float64)] * 4
+    before = cuda_spmv.diva_launches
+    A = cuda_spmv.DivaOperator(S.op, rows, *f)
+    x = torch.arange(2.0 * n, dtype=torch.float64)
+    # ddx = 1, ddy = 2, dxx = 3, dxy = 4, dyy = 5 times the identity:
+    # Au = (4*3 + 4*1 + 5 + 2 - 1) u + (3*4 + 2*2 + 1) v = 22 u + 17 v
+    # Av = (4*5 + 4*2 + 3 + 1 - 1) v + (3*4 + 2*1 + 2) u = 31 v + 16 u
+    want = torch.cat([22 * x[:n] + 17 * x[n:], 31 * x[n:] + 16 * x[:n]])
+    assert torch.equal(A.flat(x), want)
+    assert cuda_spmv.diva_launches == before
+    with pytest.raises(ValueError):
+        cuda_spmv.DivaOperator(
+            ell_stack_from_csr(mats[:1], dtype=torch.float64,
+                               device="cpu").op, rows, *f)
+    with pytest.raises(ValueError):
+        cuda_spmv.DivaOperator(S.op, rows, f[0][:-1], *f[1:])
+    with pytest.raises(TypeError):
+        cuda_spmv.DivaOperator(S.op, rows, f[0].float(), *f[1:])
+    with pytest.raises(TypeError):
+        cuda_spmv.DivaOperator(S.op, rows, *f, round_x_bf16=True)
+    with pytest.raises(ValueError):
+        cuda_spmv.DivaRows(TriC[:-1], TriC > 0, ~z, z, z)
+    with pytest.raises(TypeError):
+        A.flat(x.float())
+    with pytest.raises(ValueError):
+        A.flat(x[:-1])
+    with pytest.raises(ValueError):
+        A((x[:n], x[n:-1]))
+
+
 @pytest.fixture(scope="module")
 def cold(env):
     """The fixture state before any stress-balance solve, on both sides,

@@ -10,9 +10,10 @@ momentum operator
        + 3 N d2v/dxdy + 2 dN/dx dv/dy + dN/dy dv/dx  = -tau_dx
   v-row: symmetric
 
-is applied matrix-free: one stack-SpMV launch gives the five M2_*
-derivatives of u and v at once, scaled by the per-triangle fields (N,
-dN/dx, dN/dy, beta_eff), solved by restarted GMRES with a 2x2 block-Jacobi
+is applied matrix-free: one kernel launch (ops/cuda_spmv.py, `diva_apply`)
+forms the five M2_* derivatives of u and v, scales them by the
+per-triangle fields (N, dN/dx, dN/dy, beta_eff) and writes the boundary
+rows; the system is solved by restarted GMRES with a 2x2 block-Jacobi
 preconditioner. The viscosity iteration
 (DIVA_solver_infinite_slab.f90:52-231) including the adaptive relaxation
 rescue ladder is a host loop over device work.
@@ -34,6 +35,7 @@ from ..mesh_data import MeshData, EField, EIndex
 from ...parallel import comm
 from ...utils.constants import ice_density, grav
 from ...mesh.zeta import integrate_from_base_up, vertical_average
+from ...ops.cuda_spmv import DivaOperator, DivaRows
 from ...ops.krylov import gmres
 from .masks import determine_masks
 from .rheology import calc_ice_rheology_glen
@@ -158,43 +160,18 @@ def make_bc_data(C, mesh) -> _BCData:
 # iteration below)
 # ---------------------------------------------------------------------------
 
-def nbr_mean_residual(md, x, n_nbr):
-    """sum(x[nbrs]) - n*x (the 'infinite' BC row)."""
-    s = torch.where(md.mask_TriC, x[md.TriC], 0.0).sum(dim=1)
-    return s - n_nbr * x
-
-
 def make_A(md, N_b, dN_dx_b, dN_dy_b, beta_eff_b):
     """The matrix-free linearised SSA/DIVA momentum operator
-    (solve_linearised_SSA_DIVA_infinite_slab.f90 rows, applied as one
-    five-operator stack SpMV + elementwise scaling)."""
-    bc_free = md.x("ssa_bc_free")
-    bc_inf_u = md.x("ssa_bc_inf_u")
-    bc_inf_v = md.x("ssa_bc_inf_v")
-    n_nbr = md.mask_TriC.sum(dim=1).to(N_b.dtype)
-
-    def A(uv):
-        u, v = uv
-        # ONE kernel launch for all 10 derivative fields: u and v ride
-        # the trailing axis of the stacked input
-        d = md.M2_stack.apply(torch.stack([u, v], dim=-1))
-        ddx_u, ddy_u, dxx_u, dxy_u, dyy_u = (d[i][:, 0] for i in range(5))
-        ddx_v, ddy_v, dxx_v, dxy_v, dyy_v = (d[i][:, 1] for i in range(5))
-
-        Au = (4 * N_b * dxx_u + 4 * dN_dx_b * ddx_u
-              + N_b * dyy_u + dN_dy_b * ddy_u - beta_eff_b * u
-              + 3 * N_b * dxy_v + 2 * dN_dx_b * ddy_v + dN_dy_b * ddx_v)
-        Av = (4 * N_b * dyy_v + 4 * dN_dy_b * ddy_v
-              + N_b * dxx_v + dN_dx_b * ddx_v - beta_eff_b * v
-              + 3 * N_b * dxy_u + 2 * dN_dy_b * ddx_u + dN_dx_b * ddy_u)
-
-        # BC rows: zero/fixed -> identity; infinite -> neighbour mean
-        Au = torch.where(bc_free, Au, torch.where(
-            bc_inf_u, nbr_mean_residual(md, u, n_nbr), u))
-        Av = torch.where(bc_free, Av, torch.where(
-            bc_inf_v, nbr_mean_residual(md, v, n_nbr), v))
-        return (Au, Av)
-    return A
+    (solve_linearised_SSA_DIVA_infinite_slab.f90 rows): the five-operator
+    derivative stack applied to (u, v), scaled by the per-triangle fields,
+    BC rows 'infinite' (neighbour mean) or identity. On the card one
+    launch of the kernel `diva_apply`, on the CPU its plain version.
+    `A((u, v))` gives (Au, Av); `A.flat` is the same on the flat vector
+    [u; v], which `gmres` takes when it is there."""
+    stack = md.M2_stack
+    return DivaOperator(stack.op, md.x("ssa_diva_rows"), N_b, dN_dx_b, dN_dy_b,
+                        beta_eff_b,
+                        round_x_bf16=stack.vals.dtype == torch.float32)
 
 
 def make_precond(md, N_b, dN_dx_b, dN_dy_b, beta_eff_b):
@@ -256,8 +233,9 @@ class _ViscCarry:
 
 
 def register_ssadiva_static(C, mesh, md: MeshData):
-    """Register the SSA/DIVA static per-triangle tables (BC row masks,
-    fixed-row copy tables, preconditioner diagonals) into md.extras."""
+    """Register the SSA/DIVA static per-triangle tables (BC row masks and
+    the same packed for the operator's kernel, fixed-row copy tables,
+    preconditioner diagonals) into md.extras."""
     if "ssa_bc_free" in md.extras:
         return
     precond_choice = getattr(C, "tpu_stress_balance_precond", "")
@@ -279,6 +257,9 @@ def register_ssadiva_static(C, mesh, md: MeshData):
         "ssa_copy_w": EField(torch.as_tensor(bc.copy_w, dtype=dt,
                                              device=dev), "Tri"),
     })
+    md.extras["ssa_diva_rows"] = EField(DivaRows(
+        md.TriC, md.mask_TriC, md.x("ssa_bc_free"), md.x("ssa_bc_inf_u"),
+        md.x("ssa_bc_inf_v")), "Tri")
     ops = mesh.operators
     for name, M in [("ssa_d_ddx", ops.M2_ddx_b_b), ("ssa_d_ddy", ops.M2_ddy_b_b),
                     ("ssa_d_dxx", ops.M2_d2dx2_b_b),

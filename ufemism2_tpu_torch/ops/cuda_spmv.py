@@ -1,19 +1,30 @@
-"""The stack-SpMV kernel: build, binding, wrapper and plain version.
+"""The stack-SpMV kernel and the DIVA operator fused onto it: build,
+binding, wrappers and plain versions.
 
-Counterpart of the reference's ops/pallas_spmv.py. The function is
+Counterpart of the reference's ops/pallas_spmv.py. The first function is
 
     y[o, r, j] = sum_k vals[o, k, r] * x[cols[k, r], j]
 
 for `n_ops` operators sharing one padded-ELL index table `cols`. Tables
 are entry-major (`cols` [K, n_rows] int32, `vals` [n_ops, K, n_rows]) so
 that neighbouring rows lie at neighbouring addresses; padded entries
-point at column 0 with value 0.
+point at column 0 with value 0. The second, `diva_apply`, is the whole
+linearised SSA/DIVA momentum operator (the five-operator derivative stack
+applied to (u, v), the scaling by the per-triangle fields and the
+boundary rows) in one launch.
 
-The CUDA source csrc/stack_spmv.cu is compiled with nvcc at first use into
-a shared library with a plain C interface (under build/ beside the
-package) and loaded with ctypes. `stack_spmv` launches it for every CUDA
-tensor; only a CPU tensor takes `stack_spmv_plain`, the same arithmetic in
-plain tensor code (the CPU path and the kernel's test oracle).
+The CUDA source csrc/stack_spmv.cu holds both. It is compiled with nvcc
+at first use into a shared library with a plain C interface (under build/
+beside the package) and loaded with ctypes. A CUDA tensor always goes to
+the kernel; only a CPU tensor takes `stack_spmv_plain` /
+`diva_apply_plain`, the same arithmetic in plain tensor code (the CPU path
+and the kernels' test oracle).
+
+The binding is thin because the Krylov loop calls it once per iteration
+and the host, not the card, is what that loop waits for: everything that
+depends only on the operator (shapes, types, contiguity, device, the
+table pointers) is checked and cached once, in `StackOperator` and
+`DivaOperator`; a call checks only its x.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ from __future__ import annotations
 import ctypes
 import shutil
 import subprocess
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
@@ -31,8 +43,21 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
 N_OPS = (1, 5)       # operator counts the kernel is instantiated for
 
-launches = 0         # kernel launches since the caller last set it to 0
+launches = 0         # stack_spmv launches since the caller last set it to 0
+diva_launches = 0    # diva_apply launches, likewise
 _lib = None
+
+
+class _StackDesc(ctypes.Structure):      # csrc/stack_spmv.cu::StackDesc
+    _fields_ = [("cols", ctypes.c_void_p), ("vals", ctypes.c_void_p),
+                ("n_ops", ctypes.c_int), ("n_rows", ctypes.c_int),
+                ("K", ctypes.c_int)]
+
+
+class _DivaDesc(ctypes.Structure):       # csrc/stack_spmv.cu::DivaDesc
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "cols", "vals", "N", "dNx", "dNy", "beta", "tric", "code")] + [
+        (name, ctypes.c_int) for name in ("n_rows", "K", "round_x_bf16")]
 
 
 def build_kernel():
@@ -51,22 +76,46 @@ def build_kernel():
     return so
 
 
-def _library():
-    """The compiled kernel, built at first use in this process."""
+def load_kernels():
+    """The compiled kernels, built at first use in this process."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_kernel()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.stack_spmv_f32.argtypes = [p, p, p, p, i, i, i, i, i, p]
-        lib.stack_spmv_f32.restype = i
-        lib.stack_spmv_f64.argtypes = [p, p, p, p, i, i, i, i, p]
-        lib.stack_spmv_f64.restype = i
+        for fn in (lib.stack_spmv_f32, lib.stack_spmv_f64):
+            fn.argtypes = [p, p, p, i, i, p]
+            fn.restype = i
+        for fn in (lib.diva_apply_f32, lib.diva_apply_f64):
+            fn.argtypes = [p, p, p, p, p, p]
+            fn.restype = i
         _lib = lib
     return _lib
 
 
 def _round_bf16(x):
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _check_tables(cols, vals):
+    """The checks that depend on the operator alone."""
+    if cols.ndim != 2 or vals.ndim != 3 or vals.shape[1:] != cols.shape:
+        raise ValueError(f"stack_spmv: cols {tuple(cols.shape)} and vals "
+                         f"{tuple(vals.shape)} do not match")
+    if vals.device != cols.device:
+        raise ValueError("stack_spmv: operands on different devices")
+    if vals.device.type == "cpu":
+        return
+    if vals.device.type != "cuda":
+        raise ValueError(f"stack_spmv: unsupported device {vals.device}")
+    if cols.dtype != torch.int32:
+        raise TypeError("stack_spmv: cols must be int32")
+    if vals.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"stack_spmv: unsupported dtype {vals.dtype}")
+    if vals.shape[0] not in N_OPS:
+        raise ValueError(f"stack_spmv: the kernel is built for n_ops in "
+                         f"{N_OPS}, not {vals.shape[0]}")
+    if not (cols.is_contiguous() and vals.is_contiguous()):
+        raise ValueError("stack_spmv: cols and vals must be contiguous")
 
 
 def stack_spmv_plain(cols, vals, x, round_x_bf16=False):
@@ -79,55 +128,242 @@ def stack_spmv_plain(cols, vals, x, round_x_bf16=False):
     return (vals[..., None] * xg[None]).sum(dim=1)
 
 
+class StackOperator:
+    """`n_ops` operators over one index table, checked once and bound to
+    the kernel: `op(x, round_x_bf16)` is `stack_spmv` without the checks
+    that depend only on the tables."""
+
+    __slots__ = ("cols", "vals", "n_ops", "K", "n_rows", "dtype", "device",
+                 "_index", "_fn", "_desc", "_desc_ptr", "_like")
+
+    def __init__(self, cols, vals):
+        _check_tables(cols, vals)
+        self.cols, self.vals = cols, vals
+        self.n_ops, self.K, self.n_rows = vals.shape
+        self.dtype, self.device = vals.dtype, vals.device
+        self._index = None          # CUDA device index; None on the CPU
+        if self.device.type == "cuda":
+            self._index = self.device.index
+            lib = load_kernels()
+            self._fn = (lib.stack_spmv_f32 if self.dtype == torch.float32
+                        else lib.stack_spmv_f64)
+            self._desc = _StackDesc(cols.data_ptr(), vals.data_ptr(),
+                                    self.n_ops, self.n_rows, self.K)
+            self._desc_ptr = ctypes.addressof(self._desc)
+            # d -> a tensor of y's shape, type and device that holds one
+            # element: `empty_like` of it is the cheapest way to a new y
+            self._like = {}
+
+    def __call__(self, x, round_x_bf16=False):
+        """y [n_ops, n_rows(, d)] for x [n_cols(, d)]."""
+        global launches
+        if x.dtype != self.dtype:
+            raise TypeError(f"stack_spmv: x is {x.dtype}, vals {self.dtype}")
+        if round_x_bf16 and self.dtype != torch.float32:
+            raise TypeError("stack_spmv: round_x_bf16 needs float32")
+        nd = x.ndim
+        if nd != 1 and nd != 2:
+            raise ValueError("stack_spmv: x must be [n_cols] or [n_cols, d]")
+        if x.device != self.device:
+            raise ValueError("stack_spmv: operands on different devices")
+        index = self._index
+        if index is None:
+            return stack_spmv_plain(self.cols, self.vals, x, round_x_bf16)
+        if not x.is_contiguous():
+            x = x.contiguous()
+        d = 1 if nd == 1 else x.shape[1]
+        like = self._like.get((nd, d))
+        if like is None:
+            shape = (self.n_ops, self.n_rows) + tuple(x.shape[1:])
+            like = self._like[(nd, d)] = self.vals.new_empty(1).expand(shape)
+        y = torch.empty_like(like)
+        if self.n_rows * d == 0:
+            return y
+        if torch.cuda.current_device() != index:
+            with torch.cuda.device(index):     # x on another card
+                return self(x, round_x_bf16)
+        err = self._fn(self._desc_ptr, x.data_ptr(), y.data_ptr(), d,
+                       round_x_bf16, torch._C._cuda_getCurrentRawStream(index))
+        if err != 0:
+            raise RuntimeError(f"stack_spmv: kernel launch failed, CUDA "
+                               f"error {err}")
+        launches += 1
+        return y
+
+
 def stack_spmv(cols, vals, x, round_x_bf16=False):
     """y [n_ops, n_rows(, d)] from cols [K, n_rows], vals [n_ops, K, n_rows]
     and x [n_cols(, d)]. `round_x_bf16` (float32 only) rounds x to bfloat16
-    and back before the products."""
-    global launches
-    if cols.ndim != 2 or vals.ndim != 3 or vals.shape[1:] != cols.shape:
-        raise ValueError(f"stack_spmv: cols {tuple(cols.shape)} and vals "
-                         f"{tuple(vals.shape)} do not match")
-    if x.ndim not in (1, 2):
-        raise ValueError("stack_spmv: x must be [n_cols] or [n_cols, d]")
-    if x.dtype != vals.dtype:
-        raise TypeError(f"stack_spmv: x is {x.dtype}, vals {vals.dtype}")
-    if round_x_bf16 and x.dtype != torch.float32:
-        raise TypeError("stack_spmv: round_x_bf16 needs float32")
-    if not (x.device == vals.device == cols.device):
-        raise ValueError("stack_spmv: operands on different devices")
-    if x.device.type == "cpu":
-        return stack_spmv_plain(cols, vals, x, round_x_bf16)
+    and back before the products. For a single apply: it checks the tables
+    on every call, so a caller that applies one operator many times keeps
+    a `StackOperator` (`EllStack.op`)."""
+    return StackOperator(cols, vals)(x, round_x_bf16)
 
-    if x.device.type != "cuda":
-        raise ValueError(f"stack_spmv: unsupported device {x.device}")
-    if cols.dtype != torch.int32:
-        raise TypeError("stack_spmv: cols must be int32")
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"stack_spmv: unsupported dtype {x.dtype}")
-    n_ops, K, n_rows = vals.shape
-    if n_ops not in N_OPS:
-        raise ValueError(f"stack_spmv: the kernel is built for n_ops in "
-                         f"{N_OPS}, not {n_ops}")
-    if not (cols.is_contiguous() and vals.is_contiguous()):
-        raise ValueError("stack_spmv: cols and vals must be contiguous")
-    x = x.contiguous()
-    d = 1 if x.ndim == 1 else x.shape[1]
-    y = torch.empty((n_ops, n_rows) + tuple(x.shape[1:]), dtype=x.dtype,
-                    device=x.device)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if x.dtype == torch.float32:
-            err = lib.stack_spmv_f32(cols.data_ptr(), vals.data_ptr(),
-                                     x.data_ptr(), y.data_ptr(), n_ops,
-                                     n_rows, K, d, int(bool(round_x_bf16)),
-                                     stream)
-        else:
-            err = lib.stack_spmv_f64(cols.data_ptr(), vals.data_ptr(),
-                                     x.data_ptr(), y.data_ptr(), n_ops,
-                                     n_rows, K, d, stream)
-    if err != 0:
-        raise RuntimeError(f"stack_spmv: kernel launch failed, CUDA error "
-                           f"{err}")
-    launches += 1
-    return y
+
+# ---------------------------------------------------------------------------
+# The DIVA operator
+# ---------------------------------------------------------------------------
+
+ROW_BOUNDARY, ROW_INF_U, ROW_INF_V = 1, 2, 4     # bits of a row's code
+
+
+@dataclass
+class DivaRows:
+    """Static row tables of the DIVA operator on one mesh: the masks and
+    neighbour table the plain version reads, and the same packed for the
+    kernel (one code a row: 0 for a free row, else ROW_BOUNDARY plus
+    ROW_INF_U / ROW_INF_V where that component's row is the 'infinite'
+    form; neighbour triangles as int32 with -1 for none)."""
+
+    TriC: torch.Tensor        # [n, 3] int64 neighbour triangles (pad 0)
+    mask_TriC: torch.Tensor   # [n, 3] bool
+    free: torch.Tensor        # [n] bool: rows that solve the PDE
+    inf_u: torch.Tensor       # [n] bool: 'infinite' u rows
+    inf_v: torch.Tensor
+    code: torch.Tensor = field(init=False)     # [n] uint8
+    tric32: torch.Tensor = field(init=False)   # [n, 3] int32
+
+    def __post_init__(self):
+        n = self.free.shape[0]
+        if self.TriC.shape != (n, 3) or self.mask_TriC.shape != (n, 3) \
+                or self.inf_u.shape != (n,) or self.inf_v.shape != (n,):
+            raise ValueError("DivaRows: tables of different row counts")
+        code = (ROW_BOUNDARY + ROW_INF_U * self.inf_u.to(torch.uint8)
+                + ROW_INF_V * self.inf_v.to(torch.uint8))
+        self.code = torch.where(self.free, 0, code).to(torch.uint8)
+        self.tric32 = torch.where(self.mask_TriC, self.TriC,
+                                  -1).to(torch.int32).contiguous()
+
+
+def diva_apply_plain(stack, rows, N_b, dN_dx_b, dN_dy_b, beta_eff_b, u, v,
+                     round_x_bf16=False):
+    """Plain tensor version of `diva_apply`: (Au, Av) of the linearised
+    SSA/DIVA momentum operator (solve_linearised_SSA_DIVA_infinite_slab.f90
+    rows) from the five-operator stack `stack` (cols, vals of
+    ddx, ddy, d2dx2, d2dxdy, d2dy2 on the b-grid)."""
+    cols, vals = stack
+    # all 10 derivative fields at once: u and v ride the trailing axis of
+    # the stacked input
+    d = stack_spmv_plain(cols, vals, torch.stack([u, v], dim=-1),
+                         round_x_bf16)
+    ddx_u, ddy_u, dxx_u, dxy_u, dyy_u = (d[i][:, 0] for i in range(5))
+    ddx_v, ddy_v, dxx_v, dxy_v, dyy_v = (d[i][:, 1] for i in range(5))
+
+    Au = (4 * N_b * dxx_u + 4 * dN_dx_b * ddx_u
+          + N_b * dyy_u + dN_dy_b * ddy_u - beta_eff_b * u
+          + 3 * N_b * dxy_v + 2 * dN_dx_b * ddy_v + dN_dy_b * ddx_v)
+    Av = (4 * N_b * dyy_v + 4 * dN_dy_b * ddy_v
+          + N_b * dxx_v + dN_dx_b * ddx_v - beta_eff_b * v
+          + 3 * N_b * dxy_u + 2 * dN_dy_b * ddx_u + dN_dx_b * ddy_u)
+
+    # BC rows: zero/fixed -> identity; infinite -> neighbour mean,
+    # sum(x[nbrs]) - n*x
+    n_nbr = rows.mask_TriC.sum(dim=1).to(N_b.dtype)
+
+    def nbr_mean_residual(x):
+        s = torch.where(rows.mask_TriC, x[rows.TriC], 0.0).sum(dim=1)
+        return s - n_nbr * x
+
+    Au = torch.where(rows.free, Au, torch.where(
+        rows.inf_u, nbr_mean_residual(u), u))
+    Av = torch.where(rows.free, Av, torch.where(
+        rows.inf_v, nbr_mean_residual(v), v))
+    return (Au, Av)
+
+
+class DivaOperator:
+    """The DIVA operator for one set of per-triangle fields, checked once
+    and bound to the kernel `diva_apply`. `A((u, v))` gives (Au, Av);
+    `A.flat(x)` takes and gives the flat Krylov vector [u; v]. In float32
+    the derivative terms see u and v rounded to bfloat16 when `stack`
+    rounds (its plain apply does); `beta_eff_b * u` and the boundary rows
+    never do."""
+
+    def __init__(self, stack: StackOperator, rows: DivaRows, N_b, dN_dx_b,
+                 dN_dy_b, beta_eff_b, round_x_bf16=False):
+        n = stack.n_rows
+        fields = (N_b, dN_dx_b, dN_dy_b, beta_eff_b)
+        if stack.n_ops != 5:
+            raise ValueError("diva_apply: needs the five-operator stack, "
+                             f"got n_ops {stack.n_ops}")
+        if round_x_bf16 and stack.dtype != torch.float32:
+            raise TypeError("diva_apply: round_x_bf16 needs float32")
+        for f in fields:
+            if f.shape != (n,):
+                raise ValueError(f"diva_apply: a field of shape "
+                                 f"{tuple(f.shape)} on {n} rows")
+            if f.dtype != stack.dtype:
+                raise TypeError(f"diva_apply: a field is {f.dtype}, the "
+                                f"operators {stack.dtype}")
+        if rows.free.shape[0] != n:
+            raise ValueError("diva_apply: row tables of another mesh")
+        for t in fields + (rows.code, rows.tric32):
+            if t.device != stack.device:
+                raise ValueError("diva_apply: operands on different devices")
+        self.stack, self.rows, self.n = stack, rows, n
+        self.round = bool(round_x_bf16)
+        # contiguous copies where needed, kept alive with the pointers
+        self.fields = tuple(f.contiguous() for f in fields)
+        self._index = stack._index
+        if self._index is not None:
+            lib = load_kernels()
+            self._fn = (lib.diva_apply_f32 if stack.dtype == torch.float32
+                        else lib.diva_apply_f64)
+            self._desc = _DivaDesc(
+                stack.cols.data_ptr(), stack.vals.data_ptr(),
+                *(f.data_ptr() for f in self.fields), rows.tric32.data_ptr(),
+                rows.code.data_ptr(), n, stack.K, self.round)
+            self._desc_ptr = ctypes.addressof(self._desc)
+            self._step = n * stack.vals.element_size()
+
+    def _check(self, x, shape):
+        if x.dtype != self.stack.dtype:
+            raise TypeError(f"diva_apply: x is {x.dtype}, the operators "
+                            f"{self.stack.dtype}")
+        if x.shape != shape:
+            raise ValueError(f"diva_apply: x of shape {tuple(x.shape)}, "
+                             f"expected {shape}")
+        if x.device != self.stack.device:
+            raise ValueError("diva_apply: operands on different devices")
+        return x if x.is_contiguous() else x.contiguous()
+
+    def _plain(self, u, v):
+        return diva_apply_plain((self.stack.cols, self.stack.vals),
+                                self.rows, *self.fields, u, v, self.round)
+
+    def _launch(self, pu, pv, y):
+        global diva_launches
+        index = self._index
+        if self.n == 0:
+            return
+        if torch.cuda.current_device() != index:
+            with torch.cuda.device(index):     # x on another card
+                return self._launch(pu, pv, y)
+        py = y.data_ptr()
+        err = self._fn(self._desc_ptr, pu, pv, py, py + self._step,
+                       torch._C._cuda_getCurrentRawStream(index))
+        if err != 0:
+            raise RuntimeError(f"diva_apply: kernel launch failed, CUDA "
+                               f"error {err}")
+        diva_launches += 1
+
+    def flat(self, x):
+        """[Au; Av] for x = [u; v], both flat vectors of 2 n_rows."""
+        n = self.n
+        x = self._check(x, (2 * n,))
+        if self._index is None:
+            return torch.cat(self._plain(x[:n], x[n:]))
+        y = torch.empty_like(x)
+        px = x.data_ptr()
+        self._launch(px, px + self._step, y)
+        return y
+
+    def __call__(self, uv):
+        u, v = uv
+        n = self.n
+        u, v = self._check(u, (n,)), self._check(v, (n,))
+        if self._index is None:
+            return self._plain(u, v)
+        y = torch.empty(2 * n, dtype=u.dtype, device=u.device)
+        self._launch(u.data_ptr(), v.data_ptr(), y)
+        return (y[:n], y[n:])

@@ -28,7 +28,7 @@ import scipy.sparse as sp
 import torch
 
 from . import resolve_device
-from .cuda_spmv import stack_spmv
+from .cuda_spmv import StackOperator
 
 
 def exact_mv(M, x):
@@ -45,6 +45,11 @@ class EllStack:
     cols: torch.Tensor      # [K, n_rows] int32 (0 where padded)
     vals: torch.Tensor      # [n_ops, K, n_rows] (0 where padded)
     n_cols: int
+
+    def __post_init__(self):
+        # the checks that depend only on the tables, once; `apply` then
+        # checks its x and launches
+        self.op = StackOperator(self.cols, self.vals)
 
     @property
     def n_ops(self):
@@ -64,7 +69,7 @@ class EllStack:
             raise ValueError(f"operator has {self.n_cols} columns, x has "
                              f"{x.shape[0]} rows")
         rnd = (not exact) and self.vals.dtype == torch.float32
-        return stack_spmv(self.cols, self.vals, x, round_x_bf16=rnd)
+        return self.op(x, rnd)
 
     def to(self, device):
         return type(self)(self.cols.to(device), self.vals.to(device),
