@@ -7,18 +7,24 @@ Needs one CUDA device and nvcc; exits non-zero without them. Phases, each
 of which ends the run with a non-zero exit if it fails:
 
 1. device   - the card's name and power limit; TF32 must be off.
-2. build    - compiles ufemism2_tpu_torch/csrc/*.cu from source.
+2. build    - compiles ufemism2_tpu_torch/csrc/*.cu from source, one nvcc
+              per source, all started together.
 3. mesh     - builds the MISMIP_mod 8 km mesh on the host (a stand-in for
               config_MISMIP_8km_spinup_for_scaling.cfg, which is not in
               the repository: same geometry, physics choices and
               grounding-line resolution, written inline).
-4. kernels  - stack_spmv and diva_apply (the DIVA operator fused onto it)
+4. kernels  - stack_spmv, diva_apply (the DIVA operator fused onto it) and
+              heat_columns (the column solves of the heat equation)
               against their plain tensor versions on the card at the 8 km
               shapes, with timings and the bound; torch.sparse.mm is the
-              library yardstick of stack_spmv (no one PyTorch call computes
-              diva_apply).
+              library yardstick of stack_spmv, 62 dense torch.linalg.solve
+              calls that of heat_columns (no one PyTorch call computes
+              diva_apply). heat_columns must equal its plain version to
+              the bit, at nz 12 (its unrolled form) and at nz 15 and 7
+              (its run-time-nz form).
 5. small    - the coarse 64 km configuration in f64 on the card (CUDA
-              kernel) against the same run on the CPU (plain version).
+              kernels) against the same run on the CPU (plain versions),
+              with thermodynamics off and on.
 6. main     - ModelRegion(C, "ANT") on the card in f32 (initial DIVA
               solve from zero velocity), then run_to through the start-up
               transient and over a measured window of model years, with
@@ -32,6 +38,13 @@ of which ends the run with a non-zero exit if it fails:
 7. profile  - only with --profile N: N more ice steps under
               torch.profiler; device busy share and the kernels by device
               time (the profiler's own table goes to --profile-out).
+8. thermo   - the same 8 km configuration with thermodynamics on
+              (Huybrechts rheology, Robin initial temperatures, a heat
+              step every model year), driven the same way: heat_columns
+              once per thermodynamics step, each step timed by itself;
+              the trajectory is held to its own counts below.
+9. halfar   - the Halfar dome (SIA) in f64 to 200 model years, held to the
+              analytical solution.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -43,6 +56,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -56,6 +70,9 @@ REPS = 200         # launches per kernel timing
 # GMRES iterations of the initial solve and Krylov iterations of the window
 # on the FULL configuration, and the grounding line after it [km]
 INIT_GMRES_ITS, WINDOW_AXB_ITS, X_GL_KM = 3286, 1568, 457.457
+# the same for the FULL configuration with thermodynamics on (FULL_THERMO),
+# fixed by the first run of that path on an NVIDIA H100 80GB HBM3
+TH_INIT_GMRES_ITS, TH_WINDOW_AXB_ITS, TH_X_GL_KM = 2108, 1436, 474.473
 
 # The main path's configuration: MISMIP_mod geometry, DIVA, Zoet-Iverson
 # sliding, bilinear-TAF + bedrock-CDF grounded fractions, semi-implicit
@@ -100,17 +117,49 @@ SMALL = dict(
     maximum_resolution_ice_front=128e3, ice_front_width=128e3,
     nit_Lloyds_algorithm=2, visc_it_nit=3, pc_nit_max=2,
 )
+# thermodynamics as the schema has it: the 3-D heat equation, Huybrechts
+# (1992) rheology, Robin initial temperatures, a step every model year
+THERMO = dict(choice_thermo_model="3D_heat_equation",
+              choice_ice_rheology_Glen="Huybrechts1992",
+              choice_initial_ice_temperature_ANT="Robin",
+              dt_thermodynamics=1.0)
+# the small configuration with a thermodynamics step every ice step
+SMALL_THERMO = dict(SMALL, **dict(THERMO, dt_thermodynamics=0.1))
+FULL_THERMO = dict(FULL, **THERMO)
+# tests/test_halfar.py's configuration (SIA, no sliding, 50-100 km), on a
+# fixed mesh, in f64, to 200 model years
+HALFAR = dict(
+    choice_refgeo_init_ANT="idealised",
+    choice_refgeo_init_idealised="Halfar",
+    dx_refgeo_init_idealised=50e3,
+    refgeo_idealised_Halfar_H0=3000.0,
+    refgeo_idealised_Halfar_R0=500e3,
+    uniform_Glens_flow_factor=1e-16,
+    choice_ice_rheology_Glen="uniform",
+    choice_stress_balance_approximation="SIA",
+    choice_sliding_law="no_sliding",
+    xmin_ANT=-750e3, xmax_ANT=750e3, ymin_ANT=-750e3, ymax_ANT=750e3,
+    maximum_resolution_uniform=100e3,
+    maximum_resolution_grounded_ice=100e3,
+    maximum_resolution_ice_front=50e3,
+    ice_front_width=50e3,
+    start_time_of_run=0.0, end_time_of_run=200.0,
+    nit_Lloyds_algorithm=2,
+    refgeo_Hi_min=2.0,
+    allow_mesh_updates=False,
+)
+HALFAR_T_END, HALFAR_RMSE_M = 200.0, 80.0      # tests/test_halfar.py limit
 
 
 def say(phase, **kv):
     print(json.dumps({"phase": phase, **kv}), flush=True)
 
 
-def time_ms(fn, reps):
+def time_ms(fn, reps, warm=50):
     """Mean time of fn() in ms over `reps` back-to-back eager calls (CUDA
-    events): what a caller in a Python loop pays per call, host work
-    included."""
-    for _ in range(50):
+    events), after `warm` calls: what a caller in a Python loop pays per
+    call, host work included."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -318,6 +367,392 @@ def diva_case(name, mesh, m2, dtype, round_x, rng):
     return out
 
 
+def heat_operands(nV, zeta, dtype, rng, device="cuda"):
+    """Operands of one heat_columns comparison: physical columns at the
+    mesh's size (ice 5-3,000 m thick, temperatures below the melting
+    point, advection and strain heating of the sizes the model makes),
+    with a tenth made unstable on purpose (infinite or huge heating: the
+    Robin fallback), grounded, floating, grounding-line (subgrid mix) and
+    ice-free columns, and thin-ice columns."""
+    from ufemism2_tpu_torch.ops import cuda_heat
+    from ufemism2_tpu_torch.ops.tridiag import zeta_tridiag_operators
+    from ufemism2_tpu_torch.utils.constants import T0
+    nz = len(zeta)
+    zeta = np.asarray(zeta, np.float32 if dtype == torch.float32
+                      else np.float64)
+    dev = lambda a, dt=dtype: torch.as_tensor(np.asarray(a), dtype=dt,
+                                              device=device)
+    H = rng.uniform(5.0, 3000.0, nV)
+    pmp = dev(T0 - 8.7e-4 * H[:, None] * zeta[None, :])
+    Ti = dev(np.minimum(240.0 + 30.0 * rng.random((nV, nz)),
+                        pmp.double().cpu().numpy()))
+    c_dd = dev(rng.standard_normal((nV, nz)) * 3e-4
+               * (1.0 + 1e3 * (rng.random((nV, 1)) < 0.1)))
+    c_d2 = dev(-36.0 / H[:, None] ** 2 * (1.0 + rng.random((nV, nz))))
+    rhs = rng.standard_normal((nV, nz)) * 1e-2
+    rhs[rng.random(nV) < 0.05] = np.inf
+    rhs[rng.random(nV) < 0.05] *= 1e6
+    kind = rng.integers(0, 4, nV)     # grounded, floating, GL, ice-free
+    masks = [dev(m, torch.bool) for m in (
+        kind == 0, kind == 1, (kind == 2) | (rng.random(nV) < 0.05),
+        H < 10.0 + 290.0 * (rng.random(nV) < 0.05))]
+    zrows = cuda_heat.zeta_rows(zeta_tridiag_operators(zeta), device)
+    ops = (Ti, c_dd, c_d2, dev(rhs), dev(rng.uniform(230.0, 280.0, nV)),
+           dev(-rng.uniform(0.5, 5.0, nV), torch.float64),
+           pmp[:, -1].contiguous(), pmp, *masks[:3],
+           dev(rng.random(nV)), masks[3],
+           dev(240.0 + 20.0 * rng.random((nV, nz)), torch.float64), zrows)
+    return (*ops, 1.0, "subgrid")
+
+
+def heat_bound(args):
+    """Bytes and f64 operations that one heat_columns call on `args` must
+    move and do, with the counts of grounding-line columns that mix both
+    boundary conditions and of unstable columns.
+
+    Every column reads its thin flag and T_surf and writes its row; a thin
+    column reads its Ti_pmp row besides, nothing else. A solved column
+    reads Ti, c_dd, c_d2, rhs and Ti_pmp, the masks that decide its
+    boundary condition and only the basal values that condition needs
+    (q_base for the flux one, T_base_float for the pmp one, fraction_gr
+    for the mix); only an unstable column reads its T_robin row. Which
+    columns are unstable: the plain version with a NaN Robin profile is
+    NaN there and only there (a stable column is finite)."""
+    from ufemism2_tpu_torch.ops import cuda_heat
+    nV, nz = args[0].shape
+    size = args[0].element_size()
+    grounded, floating, gl, thin = (args[j].cpu().numpy()
+                                    for j in (8, 9, 10, 12))
+    robin_nan = torch.full_like(args[13], float("nan"))
+    probe, _ = cuda_heat.heat_columns_plain(*args[:13], robin_nan, *args[14:])
+    unstable = (torch.isnan(probe).any(1) & ~args[12]).cpu().numpy()
+    sel = np.where(gl, cuda_heat.GL_BC.get(args[16], 2),
+                   np.where(grounded, 0, np.where(floating, 1, 0)))
+    solved = ~thin
+    n_masks = nV + solved.sum() + (solved & ~gl).sum() \
+        + (solved & ~gl & ~grounded).sum()
+    nbytes = int(nV * (size + nz * 8)                 # T_surf, out
+                 + thin.sum() * nz * size             # Ti_pmp of thin ones
+                 + solved.sum() * 5 * nz * size       # the [n, nz] fields
+                 + (solved & (sel != 1)).sum() * 8    # q_base
+                 + (solved & (sel != 0)).sum() * size     # T_base_float
+                 + (solved & (sel == 2)).sum() * size     # fraction_gr
+                 + n_masks + unstable.sum() * nz * 8      # masks, T_robin
+                 + 6 * nz * 8 + 4)                        # zrows, count
+    # f64 operations per solved column: 8 a row for the sub/super-diagonal
+    # and the dt-free diagonal, 2 a row a level for the diagonal, and a
+    # substep 10 a row per solve (2 for b, 8 for the Thomas sweeps) and 3
+    # a row for the grounding-line mix. An unstable column walks all five
+    # levels (31 substeps); a stable one is counted at level 0 only (a
+    # column first stable at a later level does more: a lower bound).
+    mixed = solved & (sel == 2)
+    per_sub = nz * (10 * np.where(mixed, 2, 1) + 3 * mixed)
+    per_col = 8 * nz + np.where(unstable, 5 * 2 * nz + 31 * per_sub,
+                                2 * nz + per_sub)
+    flops = int(per_col[solved].sum())
+    return nbytes, flops, int(mixed.sum()), int(unstable.sum())
+
+
+def heat_case(name, args):
+    """One heat_columns comparison on the arguments `args` of a call:
+    kernel against its plain version on the card (to the bit), with
+    timings, the bound and the library yardstick (62 dense batched
+    solves)."""
+    from ufemism2_tpu_torch.ops import cuda_heat
+    nV, nz = args[0].shape
+    n0 = cuda_heat.launches
+    out, n_un = cuda_heat.heat_columns(*args)
+    torch.cuda.synchronize()
+    assert cuda_heat.launches == n0 + 1
+    ref, n_ref = cuda_heat.heat_columns_plain(*args)
+    torch.cuda.synchronize()
+    thin = args[12].cpu().numpy()
+    n_unstable, n_unstable_plain = int(n_un), int(n_ref)
+    bit_equal = bool(torch.equal(out, ref))
+    err = float((out - ref).abs().max())
+    ok = bit_equal and n_unstable == n_unstable_plain \
+        and bool(torch.isfinite(out).all())
+
+    ms = time_ms(lambda: cuda_heat.heat_columns(*args), REPS)
+    n1 = cuda_heat.launches
+    device_ms = graph_ms(lambda: cuda_heat.heat_columns(*args), REPS)
+    assert cuda_heat.launches == n1 + REPS + 3
+    plain_ms = time_ms(lambda: cuda_heat.heat_columns_plain(*args), 3, 1)
+
+    # library yardstick: one level's tridiagonal systems as dense [nz, nz]
+    # matrices, solved by torch.linalg.solve; the kernel's work is 62 such
+    # solves at most (31 substeps, both boundary conditions)
+    Ti = args[0]
+    A = torch.diag_embed(3.0 + torch.rand(nV, nz, dtype=torch.float64,
+                                          device="cuda"))
+    A = A + torch.diag_embed(torch.rand(nV, nz - 1, dtype=torch.float64,
+                                        device="cuda"), 1) \
+        + torch.diag_embed(torch.rand(nV, nz - 1, dtype=torch.float64,
+                                      device="cuda"), -1)
+    b = Ti.double()[..., None]
+    library_ms = 62.0 * time_ms(lambda: torch.linalg.solve(A, b), 20, 5)
+
+    nbytes, flops, n_mixed, n_unst = heat_bound(args)
+    assert n_unst == n_unstable_plain
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_flops = flops / H100_FLOPS[torch.float64] * 1e3
+    out_d = dict(case=name, n_columns=nV, nz=nz,
+                 dtype=str(Ti.dtype).replace("torch.", ""), dt=args[15],
+                 gl_bc=args[16],
+                 thin_columns=int(thin.sum()), mixed_columns=n_mixed,
+                 unstable_columns=n_unst,
+                 n_unstable=n_unstable, n_unstable_plain=n_unstable_plain,
+                 bit_equal=bit_equal, max_abs_err=err, ms=ms,
+                 device_ms=device_ms, plain_ms=plain_ms,
+                 library_ms=library_ms, bytes=nbytes, flops=flops,
+                 bound_ms=max(t_bytes, t_flops),
+                 bound_by="bytes" if t_bytes >= t_flops else "operations",
+                 ok=ok)
+    say("heat_case", **out_d)
+    if not ok:
+        raise SystemExit(f"heat_columns disagrees with its plain version in "
+                         f"case {name}: max err {err:.3e}, n_unstable "
+                         f"{n_unstable} against {n_unstable_plain}")
+    return out_d
+
+
+def small_phase(phase, Cs, mesh_s):
+    """The coarse f64 configuration on the card (kernels) and on the CPU
+    (plain versions), 0.35 model years: the same steps and viscosity
+    iterations, fields within the gaps of two f64 runs that differ in
+    summation order."""
+    from ufemism2_tpu_torch.main.region import ModelRegion
+    t0 = time.perf_counter()
+    r_cpu = ModelRegion(Cs, "ANT", mesh=mesh_s, device="cpu")
+    r_cpu.run_to(0.35)
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r_gpu = ModelRegion(Cs, "ANT", mesh=mesh_s, device="cuda")
+    r_gpu.run_to(0.35)
+    t_gpu = time.perf_counter() - t0
+    sc, sg = r_cpu.state, r_gpu.state
+    gaps = {}
+    for name in ("Hi", "u_vav_b", "v_vav_b", "Ti"):
+        a, b = getattr(sc, name), getattr(sg, name).cpu()
+        gaps[name] = float((a - b).abs().max() / a.abs().max())
+    say(phase, nV=mesh_s.nV, nTri=mesh_s.nTri,
+        steps=r_gpu.n_dt_ice, n_visc_its=[sc.n_visc_its, sg.n_visc_its],
+        n_Axb_its=[sc.n_Axb_its, sg.n_Axb_its], rel_gap=gaps,
+        thermo_steps=[r_cpu.thermo_steps, r_gpu.thermo_steps],
+        seconds_cpu=t_cpu, seconds_card=t_gpu)
+    # GMRES at rtol 1e-7 bounds the velocity gap
+    assert r_cpu.n_dt_ice == r_gpu.n_dt_ice
+    assert sc.n_visc_its == sg.n_visc_its
+    assert abs(sc.n_Axb_its - sg.n_Axb_its) <= 0.02 * sc.n_Axb_its
+    assert gaps["Hi"] < 1e-6 and gaps["u_vav_b"] < 1e-5 \
+        and gaps["v_vav_b"] < 1e-5, gaps
+    assert r_cpu.thermo_steps == r_gpu.thermo_steps
+    assert gaps["Ti"] <= 1e-12, gaps
+    return gaps
+
+
+def drive_full(C, mesh, tag, after_construct=None, after_warm=None):
+    """Construct the region on the card (the initial solve), run the
+    start-up transient and the measured window - the two phases of the JAX
+    package's bench.py, shortened - with the GMRES calls counted and every
+    kernel count set to 0 before and read after. `after_construct(region)`
+    and `after_warm()` may install timers and read them. Returns (region,
+    state, numbers)."""
+    from ufemism2_tpu_torch.core.ice import ssadiva
+    from ufemism2_tpu_torch.main.region import ModelRegion
+    from ufemism2_tpu_torch.ops import cuda_heat, cuda_spmv
+
+    gm = {"calls": 0, "its": 0}
+    gmres_inner = ssadiva.gmres
+
+    def gmres_counted(*a, **kw):
+        res = gmres_inner(*a, **kw)
+        gm["calls"] += 1
+        gm["its"] += res.n_iter
+        return res
+    ssadiva.gmres = gmres_counted
+    try:
+        cuda_spmv.launches = 0
+        cuda_spmv.diva_launches = 0
+        cuda_heat.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        region = ModelRegion(C, "ANT", mesh=mesh)  # device defaults to cuda
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_its, init_calls = gm["its"], gm["calls"]
+        say(f"{tag}initial_solve", seconds=init_s, gmres_its=init_its,
+            gmres_calls=init_calls,
+            stack_spmv_launches=cuda_spmv.launches,
+            diva_apply_launches=cuda_spmv.diva_launches,
+            max_speed=float(torch.sqrt(region.state.u_vav_b ** 2
+                                       + region.state.v_vav_b ** 2).max()))
+        if after_construct is not None:
+            after_construct(region)
+        t0 = time.perf_counter()
+        region.run_to(T_WARM)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        warm = dict(steps=region.n_dt_ice, n_visc=region.state.n_visc_its,
+                    n_axb=region.state.n_Axb_its, gmres=gm["its"],
+                    t=region.time)
+        say(f"{tag}warm_up", t_model_yr=region.time, steps=warm["steps"],
+            wall_s=warm_s, n_visc_its=warm["n_visc"],
+            n_Axb_its=warm["n_axb"], dt_ice=region.state.dt_ice)
+        if after_warm is not None:
+            after_warm()
+        t0 = time.perf_counter()
+        state = region.run_to(T_WARM + WINDOW)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = dict(stack_spmv_launches=cuda_spmv.launches,
+                      diva_apply_launches=cuda_spmv.diva_launches,
+                      heat_columns_launches=cuda_heat.launches)
+    finally:
+        ssadiva.gmres = gmres_inner
+
+    n_tensors = check_state(state, "cuda")
+    volume = float((state.Hi * region.md.A).sum())
+    w_axb = state.n_Axb_its - warm["n_axb"]
+    w_steps = region.n_dt_ice - warm["steps"]
+    out = dict(
+        nV=mesh.nV, nTri=mesh.nTri, precision=C.tpu_precision,
+        initial_solve_s=init_s,
+        initial_solve_ms_per_krylov_it=init_s * 1e3 / max(init_its, 1),
+        initial_gmres_its=init_its,
+        warm_up_s=warm_s, window_yr=region.time - warm["t"],
+        window_steps=w_steps, wall_s=run_s,
+        sim_yr_per_hr=(region.time - warm["t"]) / run_s * 3600.0,
+        s_per_step=run_s / max(w_steps, 1),
+        n_visc_its=state.n_visc_its - warm["n_visc"], n_Axb_its=w_axb,
+        gmres_its=gm["its"] - warm["gmres"],
+        ms_per_krylov_it=run_s * 1e3 / max(w_axb, 1),
+        dt_ice=state.dt_ice, x_GL_km=find_x_GL(mesh, state.TAF) / 1e3,
+        steps_total=region.n_dt_ice, n_Axb_its_total=state.n_Axb_its,
+        gmres_its_total=gm["its"], gmres_calls_total=gm["calls"], **counts,
+        ice_volume_m3=volume, state_tensors_checked=n_tensors,
+        peak_device_MiB=torch.cuda.max_memory_allocated() / 2 ** 20)
+    assert w_steps >= 1 and warm["steps"] >= 1, "no ice step was taken"
+    assert volume > 0.0, "ice volume is not positive"
+    assert w_axb > 0 and state.n_visc_its > warm["n_visc"]
+    # GMRES applies the operator once per counted iteration and once more
+    # per solve (the residual before the first cycle); every viscosity
+    # iteration (one GMRES solve each) makes 16 single-operator applies
+    assert counts["diva_apply_launches"] == gm["its"] + gm["calls"] \
+        and gm["its"] > 0, f"the {tag}path did not go through diva_apply"
+    assert counts["stack_spmv_launches"] > 16 * gm["calls"] > 0, \
+        f"the {tag}path did not go through stack_spmv"
+    assert region.md.device.type == "cuda"
+    return region, state, out
+
+
+def thermo_path(C, mesh):
+    """The FULL configuration with thermodynamics on (FULL_THERMO), driven
+    like the main path, each thermodynamics step timed by itself between
+    two synchronisations; then the kernel on the operands of the path's
+    last heat_columns call."""
+    from ufemism2_tpu_torch.core.ice import thermodynamics
+    from ufemism2_tpu_torch.core.ice.thermodynamics import \
+        calc_pressure_melting_point
+    from ufemism2_tpu_torch.utils.constants import T0
+
+    th = {"n": 0, "s": 0.0, "args": None, "window": None}
+    heat_inner = thermodynamics.heat_columns
+
+    def heat_recorded(*a):
+        th["args"] = a
+        return heat_inner(*a)
+
+    def time_thermo_steps(region):
+        step = region._thermo_step
+
+        def thermo_timed(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            th["s"] += time.perf_counter() - t
+            th["n"] += 1
+            return out
+        region._thermo_step = thermo_timed
+
+    def window_starts():
+        th["window"] = (th["n"], th["s"])
+
+    thermodynamics.heat_columns = heat_recorded
+    try:
+        region, state, out = drive_full(C, mesh, "thermo_",
+                                        time_thermo_steps, window_starts)
+    finally:
+        thermodynamics.heat_columns = heat_inner
+
+    Ti = state.Ti
+    pmp = calc_pressure_melting_point(region.md, state.Hi_eff)
+    ice = state.Hi_eff >= C.Hi_min_thermo
+    at_pmp = ice & (Ti[:, -1] >= pmp[:, -1] - 1e-3)
+    w_n, w_s = th["window"]
+    T0_run = float(torch.tensor(T0, dtype=Ti.dtype))
+    out.update(
+        thermo_steps=region.thermo_steps,
+        thermo_ms_per_step=th["s"] * 1e3 / max(th["n"], 1),
+        window_thermo_steps=th["n"] - w_n, window_thermo_s=th["s"] - w_s,
+        window_thermo_share=(th["s"] - w_s) / out["wall_s"],
+        Ti_min=float(Ti.min()), Ti_max=float(Ti.max()),
+        basal_at_pmp_share=float(at_pmp.sum()) / max(int(ice.sum()), 1),
+        n_unstable_total=int(region.thermo_n_unstable))
+    say("thermo_path", **out)
+    assert out["heat_columns_launches"] == region.thermo_steps > 0, \
+        "the thermodynamics path did not go through heat_columns"
+    assert bool(torch.isfinite(Ti).all()) and float(Ti.min()) >= 180.0 \
+        and float(Ti.max()) <= T0_run, (float(Ti.min()), float(Ti.max()))
+    init_its, w_axb = out["initial_gmres_its"], out["n_Axb_its"]
+    assert (init_its, w_axb) == (TH_INIT_GMRES_ITS, TH_WINDOW_AXB_ITS) \
+        and abs(out["x_GL_km"] - TH_X_GL_KM) < 0.01, \
+        (f"the f32 thermodynamics trajectory moved: {init_its} initial "
+         f"GMRES iterations, {w_axb} Krylov iterations in the window, "
+         f"x_GL {out['x_GL_km']:.3f} km (expected {TH_INIT_GMRES_ITS}, "
+         f"{TH_WINDOW_AXB_ITS}, {TH_X_GL_KM}): the rounding of the "
+         "operators or of the heat solve changed")
+    # the kernel on the path's own operands: those of its last call
+    return out, heat_case("heat_columns_thermo_path_last_step", th["args"])
+
+
+def halfar_phase():
+    """The Halfar dome (SIA, thermodynamics on) in f64 on the card to
+    HALFAR_T_END model years, against the analytical solution."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.core.analytical import halfar_H
+    from ufemism2_tpu_torch.main.region import ModelRegion
+    from ufemism2_tpu_torch.ops import cuda_heat
+    C = Config(**HALFAR)
+    cuda_heat.launches = 0
+    t0 = time.perf_counter()
+    region = ModelRegion(C, "ANT")
+    state = region.run_to(HALFAR_T_END)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    V = region.mesh.V
+    H_exact = halfar_H(C.uniform_Glens_flow_factor,
+                       C.Glens_flow_law_exponent,
+                       C.refgeo_idealised_Halfar_H0,
+                       C.refgeo_idealised_Halfar_R0, V[:, 0], V[:, 1],
+                       HALFAR_T_END)
+    Hi = state.Hi.double().cpu().numpy()
+    rmse = float(np.sqrt(((Hi - H_exact) ** 2).mean()))
+    out = dict(nV=region.mesh.nV, nTri=region.mesh.nTri,
+               precision=C.tpu_precision, t_model_yr=region.time,
+               steps=region.n_dt_ice, wall_s=wall_s, rmse_m=rmse,
+               rmse_limit_m=HALFAR_RMSE_M, H_max_m=float(Hi.max()),
+               H_exact_max_m=float(H_exact.max()),
+               thermo_steps=region.thermo_steps,
+               heat_columns_launches=cuda_heat.launches)
+    say("halfar", **out)
+    check_state(state, "cuda")
+    assert region.n_dt_ice > 10 and rmse < HALFAR_RMSE_M, rmse
+    assert cuda_heat.launches == region.thermo_steps > 0
+    return out
+
+
 def check_state(state, device_type):
     """Every tensor of the state finite and on the device."""
     import dataclasses
@@ -416,10 +851,11 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from ufemism2_tpu_torch.ops import cuda_spmv     # sets TF32 off
+    from ufemism2_tpu_torch.ops import cuda_heat
+    from ufemism2_tpu_torch.ops._build import SOURCES, build_kernel
     from ufemism2_tpu_torch.config import Config
-    from ufemism2_tpu_torch.main.region import ModelRegion
     from ufemism2_tpu_torch.mesh import build_mesh_from_config
-    from ufemism2_tpu_torch.core.ice import ssadiva
+    from ufemism2_tpu_torch.mesh.zeta import setup_zeta_grid
     assert torch.backends.cuda.matmul.allow_tf32 is False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -428,11 +864,20 @@ def main():
     say("device", card=card_line, torch=torch.__version__,
         cuda=torch.version.cuda)
 
-    # -- 2. build ----------------------------------------------------------
+    # -- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
+
+    def build_timed(name):
+        build_kernel(name)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = dict(zip(SOURCES, pool.map(build_timed, SOURCES)))
     cuda_spmv.load_kernels()
+    cuda_heat.load_kernels()
     say("build", seconds=time.perf_counter() - t0,
-        source="ufemism2_tpu_torch/csrc/stack_spmv.cu")
+        sources={f"ufemism2_tpu_torch/csrc/{n}.cu": s
+                 for n, s in built.items()})
 
     # -- 3. mesh (host) ----------------------------------------------------
     C = Config(**FULL)
@@ -475,112 +920,29 @@ def main():
     hot = next(c for c in cases
                if c["case"] == f"M_map_b_a_1op_d{C.nz}_float32_bf16x")
 
-    # -- 5. small configuration: card (kernel) against CPU (plain) ---------
-    Cs = Config(**SMALL)
-    mesh_s_small = build_mesh_from_config(Cs, "ANT")
-    t0 = time.perf_counter()
-    r_cpu = ModelRegion(Cs, "ANT", mesh=mesh_s_small, device="cpu")
-    r_cpu.run_to(0.35)
-    t_cpu = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    r_gpu = ModelRegion(Cs, "ANT", mesh=mesh_s_small, device="cuda")
-    r_gpu.run_to(0.35)
-    t_gpu = time.perf_counter() - t0
-    sc, sg = r_cpu.state, r_gpu.state
-    gaps = {}
-    for name in ("Hi", "u_vav_b", "v_vav_b"):
-        a, b = getattr(sc, name), getattr(sg, name).cpu()
-        gaps[name] = float((a - b).abs().max() / a.abs().max())
-    say("small", nV=mesh_s_small.nV, nTri=mesh_s_small.nTri,
-        steps=r_gpu.n_dt_ice, n_visc_its=[sc.n_visc_its, sg.n_visc_its],
-        n_Axb_its=[sc.n_Axb_its, sg.n_Axb_its], rel_gap=gaps,
-        seconds_cpu=t_cpu, seconds_card=t_gpu)
-    # two f64 runs that differ only in the summation order of the SpMV
-    # and of the reductions: GMRES at rtol 1e-7 bounds the velocity gap
-    assert r_cpu.n_dt_ice == r_gpu.n_dt_ice
-    assert sc.n_visc_its == sg.n_visc_its
-    assert abs(sc.n_Axb_its - sg.n_Axb_its) <= 0.02 * sc.n_Axb_its
-    assert gaps["Hi"] < 1e-6 and gaps["u_vav_b"] < 1e-5 \
-        and gaps["v_vav_b"] < 1e-5, gaps
+    # heat_columns at the 8 km shapes: fields in f32 (f64 systems) and f64
+    heat_cases = [heat_case(f"heat_columns_{str(dt)[6:]}",
+                            heat_operands(mesh.nV, mesh.zeta, dt, rng))
+                  for dt in (torch.float32, torch.float64)]
+    # every nz but 12 takes the kernel's run-time-nz form: held to the bit
+    # at old_15_layer_zeta's 15 layers and at an odd 7
+    for choice, nz_x in (("old_15_layer_zeta", 15), ("irregular_log", 7)):
+        zeta_x = setup_zeta_grid(choice, nz_x)[0]
+        heat_cases += [heat_case(f"heat_columns_nz{nz_x}_{str(dt)[6:]}",
+                                 heat_operands(mesh.nV, zeta_x, dt, rng))
+                       for dt in (torch.float32, torch.float64)]
+
+    # -- 5. small configuration: card (kernels) against CPU (plain) --------
+    mesh_s_small = build_mesh_from_config(Config(**SMALL), "ANT")
+    small_phase("small", Config(**SMALL), mesh_s_small)
+    small_phase("small_thermo", Config(**SMALL_THERMO), mesh_s_small)
 
     # -- 6. main path at full width ----------------------------------------
-    gm = {"calls": 0, "its": 0}
-    gmres_inner = ssadiva.gmres
-
-    def gmres_counted(*a, **kw):
-        res = gmres_inner(*a, **kw)
-        gm["calls"] += 1
-        gm["its"] += res.n_iter
-        return res
-    ssadiva.gmres = gmres_counted
-
-    cuda_spmv.launches = 0
-    cuda_spmv.diva_launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    region = ModelRegion(C, "ANT", mesh=mesh)      # device defaults to cuda
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    init_its, init_calls = gm["its"], gm["calls"]
-    say("initial_solve", seconds=init_s, gmres_its=init_its,
-        gmres_calls=init_calls,
-        stack_spmv_launches=cuda_spmv.launches,
-        diva_apply_launches=cuda_spmv.diva_launches,
-        max_speed=float(torch.sqrt(region.state.u_vav_b ** 2
-                                   + region.state.v_vav_b ** 2).max()))
-    # start-up transient (dt grows from dt_ice_min), then the measured
-    # window: the two phases of the JAX package's bench.py, shortened
-    t0 = time.perf_counter()
-    region.run_to(T_WARM)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    warm = dict(steps=region.n_dt_ice, n_visc=region.state.n_visc_its,
-                n_axb=region.state.n_Axb_its, gmres=gm["its"],
-                t=region.time)
-    say("warm_up", t_model_yr=region.time, steps=warm["steps"],
-        wall_s=warm_s, n_visc_its=warm["n_visc"], n_Axb_its=warm["n_axb"],
-        dt_ice=region.state.dt_ice)
-    t0 = time.perf_counter()
-    state = region.run_to(T_WARM + WINDOW)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    launches = cuda_spmv.launches
-    diva_launches = cuda_spmv.diva_launches
-    ssadiva.gmres = gmres_inner
-
-    n_tensors = check_state(state, "cuda")
-    volume = float((state.Hi * region.md.A).sum())
-    w_axb = state.n_Axb_its - warm["n_axb"]
-    w_steps = region.n_dt_ice - warm["steps"]
-    x_GL_km = find_x_GL(mesh, state.TAF) / 1e3
-    say("main_path", nV=mesh.nV, nTri=mesh.nTri, mesh_build_s=mesh_s,
-        precision=C.tpu_precision, initial_solve_s=init_s,
-        initial_solve_ms_per_krylov_it=init_s * 1e3 / max(init_its, 1),
-        warm_up_s=warm_s, window_yr=region.time - warm["t"],
-        window_steps=w_steps, wall_s=run_s,
-        sim_yr_per_hr=(region.time - warm["t"]) / run_s * 3600.0,
-        s_per_step=run_s / max(w_steps, 1),
-        n_visc_its=state.n_visc_its - warm["n_visc"], n_Axb_its=w_axb,
-        gmres_its=gm["its"] - warm["gmres"],
-        ms_per_krylov_it=run_s * 1e3 / max(w_axb, 1),
-        dt_ice=state.dt_ice, x_GL_km=x_GL_km,
-        steps_total=region.n_dt_ice, n_Axb_its_total=state.n_Axb_its,
-        gmres_its_total=gm["its"],
-        gmres_calls_total=gm["calls"],
-        stack_spmv_launches=launches, diva_apply_launches=diva_launches,
-        ice_volume_m3=volume, state_tensors_checked=n_tensors,
-        peak_device_MiB=torch.cuda.max_memory_allocated() / 2 ** 20)
-    assert w_steps >= 1 and warm["steps"] >= 1, "no ice step was taken"
-    assert volume > 0.0, "ice volume is not positive"
-    assert w_axb > 0 and state.n_visc_its > warm["n_visc"]
-    # GMRES applies the operator once per counted iteration and once more
-    # per solve (the residual before the first cycle); every viscosity
-    # iteration (one GMRES solve each) makes 16 single-operator applies
-    assert diva_launches == gm["its"] + gm["calls"] and gm["its"] > 0, \
-        "the main path did not go through diva_apply"
-    assert launches > 16 * gm["calls"] > 0, \
-        "the main path did not go through stack_spmv"
-    assert region.md.device.type == "cuda"
+    region, state, main = drive_full(C, mesh, "")
+    say("main_path", mesh_build_s=mesh_s, **main)
+    init_its, w_axb, x_GL_km = (main["initial_gmres_its"], main["n_Axb_its"],
+                                main["x_GL_km"])
+    assert main["heat_columns_launches"] == 0
     assert (init_its, w_axb) == (INIT_GMRES_ITS, WINDOW_AXB_ITS) \
         and abs(x_GL_km - X_GL_KM) < 0.01, \
         (f"the f32 trajectory moved: {init_its} initial GMRES iterations, "
@@ -592,11 +954,16 @@ def main():
     if args.profile > 0:
         profile_steps(region, args.profile, args.profile_out)
 
+    # -- 8. thermodynamics path at full width, 9. Halfar dome (SIA) --------
+    th, hot_heat = thermo_path(Config(**FULL_THERMO), mesh)
+    heat_cases.append(hot_heat)
+    halfar_phase()
+
     kernels = [{
         "name": "stack_spmv", "route": "cuda",
         "source": "ufemism2_tpu_torch/csrc/stack_spmv.cu",
         "replaces": "ufemism2_tpu/ops/pallas_spmv.py:57",
-        "launches": launches,
+        "launches": main["stack_spmv_launches"],
         "max_abs_err": hot["max_abs_err"], "ms": hot["ms"],
         "device_ms": hot["device_ms"],
         "plain_ms": hot["plain_ms"], "bound_ms": hot["bound_ms"],
@@ -607,12 +974,25 @@ def main():
         "source": "ufemism2_tpu_torch/csrc/stack_spmv.cu",
         "replaces": "ufemism2_tpu/ops/pallas_spmv.py:57",
         "fuses": "ufemism2_tpu/core/ice/ssadiva.py:208",
-        "launches": diva_launches,
+        "launches": main["diva_apply_launches"],
         "max_abs_err": hot_diva["max_abs_err"], "ms": hot_diva["ms"],
         "device_ms": hot_diva["device_ms"],
         "plain_ms": hot_diva["plain_ms"], "bound_ms": hot_diva["bound_ms"],
         "bound_by": hot_diva["bound_by"], "library_ms": None,
         "timed_case": hot_diva["case"], "cases": diva_cases,
+    }, {
+        "name": "heat_columns", "route": "cuda",
+        "source": "ufemism2_tpu_torch/csrc/heat_columns.cu",
+        "replaces": "ufemism2_tpu/core/ice/thermodynamics.py:267",
+        "replaces_kind": "XLA-lowered code (make_heat_solver + "
+                         "ops/tridiag.py thomas_batched), no pallas_call",
+        "launches": th["heat_columns_launches"],
+        "max_abs_err": hot_heat["max_abs_err"], "ms": hot_heat["ms"],
+        "device_ms": hot_heat["device_ms"],
+        "plain_ms": hot_heat["plain_ms"], "bound_ms": hot_heat["bound_ms"],
+        "bound_by": hot_heat["bound_by"],
+        "library_ms": hot_heat["library_ms"],
+        "timed_case": hot_heat["case"], "cases": heat_cases,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line, flush=True)

@@ -28,7 +28,8 @@ def _imported_roots(path):
 
 def test_port_has_files():
     assert len(FILES) > 30
-    assert (ROOT / "ufemism2_tpu_torch" / "csrc" / "stack_spmv.cu").exists()
+    for name in ("stack_spmv.cu", "heat_columns.cu"):
+        assert (ROOT / "ufemism2_tpu_torch" / "csrc" / name).exists()
 
 
 @pytest.mark.parametrize("path", FILES,

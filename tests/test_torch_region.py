@@ -124,7 +124,9 @@ def test_default_device_is_the_card(env):
 
 
 @pytest.mark.parametrize("over, word", [
-    (dict(choice_thermo_model="3D_heat_equation"), "choice_thermo_model"),
+    (dict(choice_thermo_model="3D_heat_equation",
+          choice_geothermal_heat_flux="read_from_file"),
+     "choice_geothermal_heat_flux"),
     (dict(allow_mesh_updates=True), "allow_mesh_updates"),
     (dict(choice_SMB_model_ANT="IMAU-ITM"), "choice_SMB_model"),
     (dict(choice_BMB_model_ANT="laddie_py"), "choice_BMB_model"),

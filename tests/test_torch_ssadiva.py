@@ -306,8 +306,9 @@ def test_ssa_solve_and_no_sliding(env, cold):
 
 
 @pytest.mark.parametrize("over, word", [
-    (dict(choice_stress_balance_approximation="SIA/SSA"), "SIA/SSA"),
-    (dict(choice_stress_balance_approximation="SIA"), "SIA"),
+    (dict(choice_stress_balance_approximation="hybrid DIVA/BPA"),
+     "hybrid DIVA/BPA"),
+    (dict(tpu_stress_balance_precond="chebyshev"), "chebyshev"),
     (dict(choice_stress_balance_approximation="BPA"), "BPA"),
     (dict(BC_ice_front="ocean_pressure"), "ocean_pressure"),
     (dict(tpu_stress_balance_precond="block_dense"), "block_dense"),

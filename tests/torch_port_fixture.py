@@ -9,6 +9,12 @@ and the identical host tables.
 import dataclasses
 
 import numpy as np
+import torch
+
+# One intra-op thread per process: the suite runs in several worker
+# processes at once, and the port's tensors are small, so more threads only
+# make the workers' thread pools spin against each other.
+torch.set_num_threads(1)
 
 FIXTURE = dict(
     choice_refgeo_init_ANT="idealised",

@@ -17,6 +17,8 @@ from ...parallel import comm
 from ..mesh_data import MeshData, EField
 from .geometry import ice_surface_elevation, thickness_above_flotation
 from .masks import determine_masks, calc_mask_noice
+from .rheology import calc_ice_rheology_glen
+from .sia import solve_SIA
 from .subgrid import (calc_effective_thickness, calc_grounded_fractions,
                       register_bedrock_cdfs)
 from .mass import (calc_dHi_dt, calc_critical_timestep_adv,
@@ -41,21 +43,27 @@ def make_solve_stress_balance(C, md: MeshData, bedrock_cdfs=None):
         def solve(md, Hi, Hs, Hb, SL, Ti, s):
             z = torch.zeros_like(s.u_vav_b)
             z3 = torch.zeros_like(s.u_3D_b)
-            # no warm-start state of its own: carried through unchanged
-            aux = {"visc_tau_bx": s.visc_tau_bx,
-                   "visc_tau_by": s.visc_tau_by,
-                   "visc_eta_3D_b": s.visc_eta_3D_b}
-            return (z, z, z3, z3, 0, 0, aux)
+            return (z, z, z3, z3, 0, 0, s.solver_aux())
         return solve
 
-    if choice in ("SSA", "DIVA"):
+    if choice == "SIA":
+        def solve(md, Hi, Hs, Hb, SL, Ti, s):
+            masks = determine_masks(md, Hi, Hb, SL)
+            A_flow = calc_ice_rheology_glen(
+                C, md, Hi, Hs, Ti, masks["mask_grounded_ice"],
+                masks["mask_floating_ice"])
+            u3, v3, _, _, _, uv, vv = solve_SIA(C, md, Hi, Hs, A_flow)
+            return (uv, vv, u3, v3, 0, 0, s.solver_aux())
+        return solve
+
+    if choice in ("SSA", "DIVA", "SIA/SSA"):
         from .ssadiva import make_solve_ssa_diva
         return make_solve_ssa_diva(C, md, choice, bedrock_cdfs=bedrock_cdfs)
 
-    if choice in ("SIA", "SIA/SSA", "BPA", "hybrid DIVA/BPA"):
+    if choice in ("BPA", "hybrid DIVA/BPA"):
         raise NotImplementedError(
             f"choice_stress_balance_approximation '{choice}' is not ported "
-            "yet (ported: none, SSA, DIVA)")
+            "yet (ported: none, SIA, SSA, DIVA, SIA/SSA)")
     raise ValueError(f"stress balance '{choice}' not implemented yet")
 
 
@@ -134,9 +142,7 @@ def make_pc_step(C, md: MeshData, refgeo_Hi=None, refgeo_Hb=None,
         Hi_star = Hi_np1 = Hi_prev
         uv, vv, u3, v3, divQ = (s.u_vav_b, s.v_vav_b, s.u_3D_b, s.v_3D_b,
                                 s.divQ)
-        aux = {"visc_tau_bx": s.visc_tau_bx,
-               "visc_tau_by": s.visc_tau_by,
-               "visc_eta_3D_b": s.visc_eta_3D_b}
+        aux = s.solver_aux()
         n_visc_its = n_Axb_its = 0
 
         while (not done) and it < nit_max:

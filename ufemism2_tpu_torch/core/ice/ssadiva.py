@@ -19,8 +19,8 @@ preconditioner. The viscosity iteration
 rescue ladder is a host loop over device work.
 
 Not ported yet (each raises NotImplementedError where it is chosen): the
-ocean-pressure calving-front rows, the SIA/SSA hybrid, and the
-block_dense, two_level, Chebyshev and Neumann preconditioners.
+ocean-pressure calving-front rows and the block_dense, two_level,
+Chebyshev and Neumann preconditioners.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from ...ops.cuda_spmv import DivaOperator, DivaRows
 from ...ops.krylov import gmres
 from .masks import determine_masks
 from .rheology import calc_ice_rheology_glen
+from .sia import solve_SIA
 from .subgrid import (calc_grounded_fractions, calc_effective_thickness,
                       register_bedrock_cdfs)
 from .sliding import calc_basal_friction_coefficient, register_sliding_static
@@ -272,20 +273,19 @@ def register_ssadiva_static(C, mesh, md: MeshData):
 
 
 def make_solve_ssa_diva(C, md: MeshData, choice: str, bedrock_cdfs=None):
-    """Build the stress-balance solve function for SSA / DIVA.
+    """Build the stress-balance solve function for SSA / DIVA / SIA+SSA.
 
     Returned fn(md, Hi, Hs, Hb, SL, Ti, s) ->
       (u_vav_b, v_vav_b, u_3D_b, v_3D_b, n_visc_its, n_Axb_its, aux).
 
-    All per-entity static data lives in md.extras (registered above).
+    SIA/SSA is the SSA solve with the SIA velocities added to it (the
+    reference's 'add' hybrid scheme). All per-entity static data lives in
+    md.extras (registered above).
     """
-    if choice == "SIA/SSA":
-        raise NotImplementedError(
-            "choice_stress_balance_approximation 'SIA/SSA' is not ported "
-            "yet (ported: none, SSA, DIVA)")
-    if choice not in ("SSA", "DIVA"):
+    if choice not in ("SSA", "DIVA", "SIA/SSA"):
         raise ValueError(f"make_solve_ssa_diva: unknown choice '{choice}'")
     is_diva = choice == "DIVA"
+    with_sia = choice == "SIA/SSA"
     krylov_restart = int(getattr(C, "tpu_stress_balance_krylov_restart", 60))
     if getattr(C, "BC_ice_front", "infinite_slab") == "ocean_pressure":
         raise NotImplementedError(
@@ -298,18 +298,25 @@ def make_solve_ssa_diva(C, md: MeshData, choice: str, bedrock_cdfs=None):
     register_bedrock_cdfs(md, bedrock_cdfs)
 
     if not is_diva and no_sliding:
-        # Pure SSA with no sliding: the SSA velocity is identically zero
-        # and the reference skips the solve entirely
-        # (SSA_main.f90:125-130). Solving with beta = 0 instead would be
-        # a free-slip membrane - unbounded velocities.
+        # Pure SSA (or the SSA part of SIA/SSA) with no sliding: the SSA
+        # velocity is identically zero and the reference skips the solve
+        # entirely (SSA_main.f90:125-130). Solving with beta = 0 instead
+        # would be a free-slip membrane - unbounded velocities.
         def solve_no_slip(md, Hi, Hs, Hb, SL, Ti, s):
             z_b = torch.zeros(md.nTri, dtype=md.A.dtype, device=md.device)
             z3 = torch.zeros((md.nTri, md.nz), dtype=md.A.dtype,
                              device=md.device)
-            aux = {"visc_tau_bx": s.visc_tau_bx,
-                   "visc_tau_by": s.visc_tau_by,
-                   "visc_eta_3D_b": s.visc_eta_3D_b}
-            return (z_b, z_b, z3, z3, 0, 0, aux)
+            u_vav, v_vav, u_3D, v_3D = z_b, z_b, z3, z3
+            if with_sia:
+                masks = determine_masks(md, Hi, Hb, SL)
+                A_flow = calc_ice_rheology_glen(
+                    C, md, Hi, Hs, Ti, masks["mask_grounded_ice"],
+                    masks["mask_floating_ice"])
+                u3s, v3s, _, _, _, uvs, vvs = solve_SIA(C, md, Hi, Hs,
+                                                        A_flow)
+                u_vav, v_vav = u_vav + uvs, v_vav + vvs
+                u_3D, v_3D = u_3D + u3s, v_3D + v3s
+            return (u_vav, v_vav, u_3D, v_3D, 0, 0, s.solver_aux())
         return solve_no_slip
 
     def solve(md, Hi, Hs, Hb, SL, Ti, s):
@@ -527,9 +534,20 @@ def make_solve_ssa_diva(C, md: MeshData, choice: str, bedrock_cdfs=None):
             u_3D = out.u[:, None].expand(md.nTri, nz).contiguous()
             v_3D = out.v[:, None].expand(md.nTri, nz).contiguous()
 
+        u_vav, v_vav = out.u, out.v
+
+        if with_sia:
+            # hybrid SIA+SSA 'add' scheme (choice_hybrid_SIASSA_scheme)
+            u3_sia, v3_sia, _, _, _, uv_sia, vv_sia = solve_SIA(
+                C, md, Hi, Hs, A_flow)
+            u_vav = u_vav + uv_sia
+            v_vav = v_vav + vv_sia
+            u_3D = u_3D + u3_sia
+            v_3D = v_3D + v3_sia
+
         aux = {"visc_tau_bx": out.tau_bx, "visc_tau_by": out.tau_by,
                "visc_eta_3D_b": out.eta_3D_b}
-        return (out.u, out.v, u_3D, v_3D, out.it, out.n_axb, aux)
+        return (u_vav, v_vav, u_3D, v_3D, out.it, out.n_axb, aux)
 
     return solve
 

@@ -119,6 +119,14 @@ class IceState(_Replaceable):
     n_visc_its: int
     n_Axb_its: int
 
+    def solver_aux(self):
+        """The stress-balance warm-start fields as a solver returns them:
+        a solver without warm-start state of its own carries these
+        through unchanged."""
+        return {"visc_tau_bx": self.visc_tau_bx,
+                "visc_tau_by": self.visc_tau_by,
+                "visc_eta_3D_b": self.visc_eta_3D_b}
+
 
 def init_ice_state(md, Hi, Hb, SL, nz: int, dt_init: float = 0.1,
                    Ti_init: float = 270.0) -> IceState:

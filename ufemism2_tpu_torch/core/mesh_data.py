@@ -106,6 +106,17 @@ class MeshData:
     halo_Tri: Any = None
     halo_E: Any = None
 
+    # -- halo hooks: on one device an entity space has no halo, so the
+    # extended-local view of a field is the field itself
+    def ext_V(self, x):
+        return x
+
+    def ext_Tri(self, x):
+        return x
+
+    def ext_E(self, x):
+        return x
+
     def x(self, name):
         """Registered extra field/table tensor by name."""
         return self.extras[name].arr

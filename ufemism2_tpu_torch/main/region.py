@@ -7,9 +7,11 @@ the per-step field work (PC ice dynamics, component models) runs on one
 device. Mesh building is a host-side event.
 
 This slice covers a fixed mesh built from an idealised geometry, the
-stress balances none/SSA/DIVA, uniform SMB/BMB/LMB/AMB and no
-thermodynamics. Every other choice raises NotImplementedError at
-construction, naming the choice.
+stress balances none/SIA/SSA/DIVA/SIA+SSA, uniform SMB/BMB/LMB/AMB, the
+'none' climate and the 3-D heat equation with a uniform geothermal flux
+(fused into the ice-step loop as the reference's make_pc_multistep does).
+Every other choice raises NotImplementedError at construction, naming
+the choice.
 """
 
 from __future__ import annotations
@@ -30,6 +32,9 @@ from ..core.ice.pc import (make_pc_step, make_solve_stress_balance,
 from ..core.ice.masks import determine_masks
 from ..core.ice.subgrid import calc_grounded_fractions_bilin_TAF
 from ..core.ice.bedrock_cdf import build_bedrock_cdfs_from_config
+from ..core.ice.thermodynamics import (
+    register_thermo_static, make_heat_solver, make_geothermal_flux,
+    run_thermodynamics, robin_solution, calc_pressure_melting_point)
 from ..core.idealised_geometries import calc_idealised_geometry
 from ..mesh import Mesh, build_mesh_from_config
 from ..ops import resolve_device
@@ -37,6 +42,7 @@ from ..models.smb import make_run_smb
 from ..models.bmb import make_run_bmb
 from ..models.lmb import make_run_lmb
 from ..models.amb import make_run_amb
+from ..models.climate import make_run_climate
 from ..utils.logging_utils import routine
 
 
@@ -51,8 +57,10 @@ def _require(C, key, allowed, what=None):
 
 def _check_slice(C, name):
     """Refuse, by name, every configuration choice this slice lacks."""
-    _require(C, "choice_thermo_model", ("none",),
-             "thermodynamics is the next slice")
+    _require(C, "choice_thermo_model", ("none", "3D_heat_equation"))
+    if C.choice_thermo_model == "3D_heat_equation":
+        _require(C, "choice_geothermal_heat_flux", ("uniform",),
+                 "reading input files")
     _require(C, "allow_mesh_updates", (False,), "remeshing")
     _require(C, f"choice_refgeo_init_{name}", ("idealised",))
     _require(C, f"choice_climate_model_{name}", ("none",))
@@ -111,6 +119,7 @@ class ModelRegion:
                                             t_Hi_next=self.time)
 
             # component models
+            self.run_climate = make_run_climate(C, self.md, self.name)
             self.run_smb = make_run_smb(C, self.md, self.name)
             self.run_bmb = make_run_bmb(C, self.md, self.name)
             self.run_lmb = make_run_lmb(C, self.md, self.name)
@@ -152,6 +161,26 @@ class ModelRegion:
                                         refgeo_Hb=Hb_PD,
                                         bedrock_cdfs=self._bedrock_cdfs)
 
+            # thermodynamics: one step per dt_thermodynamics, caught up
+            # after every ice step of run_to (the reference fuses it into
+            # make_pc_multistep); the next thermodynamics time carries
+            # across run_to calls
+            self.do_thermo = C.choice_thermo_model == "3D_heat_equation"
+            self.t_thermo_next = self.time + C.dt_thermodynamics
+            self.thermo_steps = 0
+            self.thermo_n_unstable = torch.zeros((), dtype=torch.int64,
+                                                 device=self.device)
+            if self.do_thermo:
+                register_thermo_static(self.md)
+                heat = make_heat_solver(C, self.md)
+                self._geothermal = make_geothermal_flux(C, self.md)
+                dt_th = C.dt_thermodynamics
+                self._thermo_step = \
+                    lambda md_, s, T_surf, SMB, BMB: run_thermodynamics(
+                        C, md_, s, dt_th, T_surf, SMB, BMB, heat)
+
+            self.climate = self.run_climate(self.time, self.state)
+            self._T_surf = self.climate["T2m"].mean(dim=1)
             self.SMB = self.run_smb(self.time, self.state)
             m0, fg0 = self._masks_fracs(self.state.Hi, self.state.Hb,
                                         self.state.SL)
@@ -162,7 +191,15 @@ class ModelRegion:
             # initialise Ti
             ti_choice = getattr(C,
                                 f"choice_initial_ice_temperature_{self.name}")
-            if ti_choice == "uniform":
+            if self.do_thermo and ti_choice == "Robin":
+                Ti_pmp = calc_pressure_melting_point(self.md,
+                                                     self.state.Hi_eff)
+                Ti0 = robin_solution(C, self.md, self.state.Hi_eff, Ti_pmp,
+                                     m0, self._T_surf, self.SMB,
+                                     self._geothermal)
+                self.state = self.state.replace(
+                    Ti=Ti0.to(self.state.Ti.dtype))
+            elif ti_choice == "uniform":
                 self.state = self.state.replace(
                     Ti=torch.full_like(
                         self.state.Ti,
@@ -186,9 +223,9 @@ class ModelRegion:
 
             # event scheduling (UFEMISM_main_model.f90:598-609)
             t0 = self.time
-            self.t_next = {"SMB": t0, "BMB": t0, "LMB": t0}
-            self.dt_comp = {"SMB": C.dt_SMB, "BMB": C.dt_BMB,
-                            "LMB": C.dt_LMB}
+            self.t_next = {"climate": t0, "SMB": t0, "BMB": t0, "LMB": t0}
+            self.dt_comp = {"climate": C.dt_climate, "SMB": C.dt_SMB,
+                            "BMB": C.dt_BMB, "LMB": C.dt_LMB}
             self.n_dt_ice = 0
             self.wallclock = 0.0
 
@@ -211,11 +248,13 @@ class ModelRegion:
         dt_max = dt_max if dt_max is not None else C.dt_ice_max
         t0_wall = _time.perf_counter()
 
-        def step():
+        def step(thermo):
             self.state = self.pc_step(self.md, self.state, dt_max,
                                       SMB=self.SMB, BMB=self.BMB,
                                       LMB=self.LMB)
             self.n_dt_ice += 1
+            if thermo:
+                self._catch_up_thermo()
             if verbose:
                 print(f"  t={self.state.t_Hi_next:12.2f} yr  "
                       f"dt={self.state.dt_ice:8.4f}  "
@@ -235,9 +274,14 @@ class ModelRegion:
                 # it (ice_dynamics_main.f90:85-121)
                 if self.state.t_Hi_next <= self.time + 1e-9:
                     t_stop = min([t_end] + list(self.t_next.values()))
-                    step()
-                    while self.state.t_Hi_next < t_stop - 1e-9:
-                        step()
+                    if t_stop > self.state.t_Hi_next + 1e-9:
+                        step(self.do_thermo)
+                        while self.state.t_Hi_next < t_stop - 1e-9:
+                            step(self.do_thermo)
+                    else:
+                        # a single step with no thermodynamics catch-up,
+                        # as the reference's run_to takes it
+                        step(False)
 
                 # advance region time to next action
                 t_candidates = [self.state.t_Hi_next]
@@ -249,6 +293,23 @@ class ModelRegion:
         self._sync()
         self.wallclock = _time.perf_counter() - t0_wall
         return self.state
+
+    def _catch_up_thermo(self):
+        """Thermodynamics up to the new prediction time: every
+        dt_thermodynamics boundary the ice step passed, each on the ice
+        interpolated to its time; only Ti is written back."""
+        s = self.state
+        t_th = self.t_thermo_next
+        while t_th <= s.t_Hi_next + 1e-9:
+            si = interpolate_ice_to_time(s, t_th)
+            Ti_new, n_unstable = self._thermo_step(
+                self.md, si, self._T_surf, self.SMB, self.BMB)
+            s = s.replace(Ti=Ti_new)
+            t_th = t_th + self.C.dt_thermodynamics
+            self.thermo_steps += 1
+            self.thermo_n_unstable = self.thermo_n_unstable + n_unstable
+        self.state = s
+        self.t_thermo_next = t_th
 
     def _run_components(self):
         t = self.time
@@ -262,6 +323,10 @@ class ModelRegion:
         def bump(name):
             self.t_next[name] = self.t_next[name] + self.dt_comp[name]
 
+        if need("climate"):
+            self.climate = self.run_climate(t, s)
+            self._T_surf = self.climate["T2m"].mean(dim=1)
+            bump("climate")
         if need("SMB"):
             self.SMB = self.run_smb(t, s)
             bump("SMB")

@@ -1,5 +1,6 @@
 """Device-side numerical building blocks: ELL sparse operators, the
-hand-written stack-SpMV kernel and the Krylov solvers.
+hand-written kernels (stack SpMV, the DIVA operator, the heat equation's
+column solves), the tridiagonal solver and the Krylov solvers.
 
 TF32 stays off: the stress-balance operator's coefficients span ~1e13 and
 the GMRES orthogonalisation degrades visibly under reduced-precision

@@ -15,10 +15,10 @@ boundary rows) in one launch.
 
 The CUDA source csrc/stack_spmv.cu holds both. It is compiled with nvcc
 at first use into a shared library with a plain C interface (under build/
-beside the package) and loaded with ctypes. A CUDA tensor always goes to
-the kernel; only a CPU tensor takes `stack_spmv_plain` /
-`diva_apply_plain`, the same arithmetic in plain tensor code (the CPU path
-and the kernels' test oracle).
+beside the package, by `_build.build_kernel`) and loaded with ctypes. A
+CUDA tensor always goes to the kernel; only a CPU tensor takes
+`stack_spmv_plain` / `diva_apply_plain`, the same arithmetic in plain
+tensor code (the CPU path and the kernels' test oracle).
 
 The binding is thin because the Krylov loop calls it once per iteration
 and the host, not the card, is what that loop waits for: everything that
@@ -30,17 +30,12 @@ table pointers) is checked and cached once, in `StackOperator` and
 from __future__ import annotations
 
 import ctypes
-import shutil
-import subprocess
 from dataclasses import dataclass, field
-from pathlib import Path
 
 import torch
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD = Path(__file__).resolve().parent.parent.parent / "build"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+from ._build import build_kernel
+
 N_OPS = (1, 5)       # operator counts the kernel is instantiated for
 
 launches = 0         # stack_spmv launches since the caller last set it to 0
@@ -60,27 +55,11 @@ class _DivaDesc(ctypes.Structure):       # csrc/stack_spmv.cu::DivaDesc
         (name, ctypes.c_int) for name in ("n_rows", "K", "round_x_bf16")]
 
 
-def build_kernel():
-    """Compile csrc/stack_spmv.cu into build/libstack_spmv.so; returns the
-    library's path."""
-    exe = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not Path(exe).exists():
-        raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    so = _BUILD / "libstack_spmv.so"
-    res = subprocess.run(
-        [exe, *_NVCC_FLAGS, "-o", str(so), str(_CSRC / "stack_spmv.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on stack_spmv.cu:\n{res.stdout}")
-    return so
-
-
 def load_kernels():
     """The compiled kernels, built at first use in this process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build_kernel()))
+        lib = ctypes.CDLL(str(build_kernel("stack_spmv")))
         p, i = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.stack_spmv_f32, lib.stack_spmv_f64):
             fn.argtypes = [p, p, p, i, i, p]
