@@ -20,8 +20,12 @@ of which ends the run with a non-zero exit if it fails:
               library yardstick of stack_spmv, 62 dense torch.linalg.solve
               calls that of heat_columns (no one PyTorch call computes
               diva_apply). heat_columns must equal its plain version to
-              the bit, at nz 12 (its unrolled form) and at nz 15 and 7
-              (its run-time-nz form).
+              the bit, at nz 12 (its unrolled form: random operands in
+              f32 and f64, and an all-stable f32 case), at nz 15 and 7
+              (its run-time-nz form), and on the edge operands of
+              tests/test_torch_heat_design.py at nz 12 and 7 (inf, -inf
+              and NaN in every operand that can carry one, a pivot at the
+              1e-300 clamp, an overflowing factor).
 5. small    - the coarse 64 km configuration in f64 on the card (CUDA
               kernels) against the same run on the CPU (plain versions),
               with thermodynamics off and on.
@@ -42,15 +46,19 @@ of which ends the run with a non-zero exit if it fails:
               (Huybrechts rheology, Robin initial temperatures, a heat
               step every model year), driven the same way: heat_columns
               once per thermodynamics step, each step timed by itself;
-              the trajectory is held to its own counts below.
+              the trajectory is held to its own counts below; then the
+              kernel case on the operands of the path's last call.
 9. halfar   - the Halfar dome (SIA) in f64 to 200 model years, held to the
-              analytical solution.
+              analytical solution; then the kernel case on the operands
+              of the phase's last heat_columns call.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 import argparse
+import contextlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -367,13 +375,14 @@ def diva_case(name, mesh, m2, dtype, round_x, rng):
     return out
 
 
-def heat_operands(nV, zeta, dtype, rng, device="cuda"):
+def heat_operands(nV, zeta, dtype, rng, device="cuda", unstable=True):
     """Operands of one heat_columns comparison: physical columns at the
     mesh's size (ice 5-3,000 m thick, temperatures below the melting
     point, advection and strain heating of the sizes the model makes),
     with a tenth made unstable on purpose (infinite or huge heating: the
-    Robin fallback), grounded, floating, grounding-line (subgrid mix) and
-    ice-free columns, and thin-ice columns."""
+    Robin fallback) unless `unstable` is False, grounded, floating,
+    grounding-line (subgrid mix) and ice-free columns, and thin-ice
+    columns."""
     from ufemism2_tpu_torch.ops import cuda_heat
     from ufemism2_tpu_torch.ops.tridiag import zeta_tridiag_operators
     from ufemism2_tpu_torch.utils.constants import T0
@@ -386,18 +395,21 @@ def heat_operands(nV, zeta, dtype, rng, device="cuda"):
     pmp = dev(T0 - 8.7e-4 * H[:, None] * zeta[None, :])
     Ti = dev(np.minimum(240.0 + 30.0 * rng.random((nV, nz)),
                         pmp.double().cpu().numpy()))
-    c_dd = dev(rng.standard_normal((nV, nz)) * 3e-4
-               * (1.0 + 1e3 * (rng.random((nV, 1)) < 0.1)))
+    c_dd = rng.standard_normal((nV, nz)) * 3e-4
+    c_dd = dev(c_dd * (1.0 + 1e3 * ((rng.random((nV, 1)) < 0.1) & unstable)))
     c_d2 = dev(-36.0 / H[:, None] ** 2 * (1.0 + rng.random((nV, nz))))
     rhs = rng.standard_normal((nV, nz)) * 1e-2
-    rhs[rng.random(nV) < 0.05] = np.inf
-    rhs[rng.random(nV) < 0.05] *= 1e6
+    rhs[(rng.random(nV) < 0.05) & unstable] = np.inf
+    rhs[(rng.random(nV) < 0.05) & unstable] *= 1e6
     kind = rng.integers(0, 4, nV)     # grounded, floating, GL, ice-free
     masks = [dev(m, torch.bool) for m in (
         kind == 0, kind == 1, (kind == 2) | (rng.random(nV) < 0.05),
         H < 10.0 + 290.0 * (rng.random(nV) < 0.05))]
     zrows = cuda_heat.zeta_rows(zeta_tridiag_operators(zeta), device)
-    ops = (Ti, c_dd, c_d2, dev(rhs), dev(rng.uniform(230.0, 280.0, nV)),
+    # a surface above T0 caps the top row at T0 rounded to the fields'
+    # type, which in float32 lies above T0 and fails the stability test
+    t_surf = rng.uniform(230.0, 280.0 if unstable else 270.0, nV)
+    ops = (Ti, c_dd, c_d2, dev(rhs), dev(t_surf),
            dev(-rng.uniform(0.5, 5.0, nV), torch.float64),
            pmp[:, -1].contiguous(), pmp, *masks[:3],
            dev(rng.random(nV)), masks[3],
@@ -440,15 +452,17 @@ def heat_bound(args):
                  + n_masks + unstable.sum() * nz * 8      # masks, T_robin
                  + 6 * nz * 8 + 4)                        # zrows, count
     # f64 operations per solved column: 8 a row for the sub/super-diagonal
-    # and the dt-free diagonal, 2 a row a level for the diagonal, and a
-    # substep 10 a row per solve (2 for b, 8 for the Thomas sweeps) and 3
-    # a row for the grounding-line mix. An unstable column walks all five
-    # levels (31 substeps); a stable one is counted at level 0 only (a
-    # column first stable at a later level does more: a lower bound).
+    # and the dt-free parts of the diagonal; a level 5 a row (the diagonal,
+    # then den and cp once); a substep 7 a row (b, the dp sweep, the back
+    # substitution), and for a mixed column 5 a row more (the second back
+    # substitution and the mix). Counted as the least the kernel can do on
+    # this data: a stable column one level of one substep, an unstable one
+    # five levels of one substep each (the non-finite exit). A column
+    # first stable at a later level, an unstable one whose carry stays
+    # finite and the speculative level 4 of a stable column do more.
     mixed = solved & (sel == 2)
-    per_sub = nz * (10 * np.where(mixed, 2, 1) + 3 * mixed)
-    per_col = 8 * nz + np.where(unstable, 5 * 2 * nz + 31 * per_sub,
-                                2 * nz + per_sub)
+    levels = np.where(unstable, 5, 1)
+    per_col = 8 * nz + (5 + np.where(mixed, 12, 7)) * nz * levels
     flops = int(per_col[solved].sum())
     return nbytes, flops, int(mixed.sum()), int(unstable.sum())
 
@@ -646,22 +660,33 @@ def drive_full(C, mesh, tag, after_construct=None, after_warm=None):
     return region, state, out
 
 
+@contextlib.contextmanager
+def last_heat_call():
+    """Within the block, the dict it yields holds under "args" the operands
+    of the last heat_columns call of the thermodynamics step."""
+    from ufemism2_tpu_torch.core.ice import thermodynamics
+    last, inner = {}, thermodynamics.heat_columns
+
+    def recorded(*a):
+        last["args"] = a
+        return inner(*a)
+    thermodynamics.heat_columns = recorded
+    try:
+        yield last
+    finally:
+        thermodynamics.heat_columns = inner
+
+
 def thermo_path(C, mesh):
     """The FULL configuration with thermodynamics on (FULL_THERMO), driven
     like the main path, each thermodynamics step timed by itself between
     two synchronisations; then the kernel on the operands of the path's
     last heat_columns call."""
-    from ufemism2_tpu_torch.core.ice import thermodynamics
     from ufemism2_tpu_torch.core.ice.thermodynamics import \
         calc_pressure_melting_point
     from ufemism2_tpu_torch.utils.constants import T0
 
-    th = {"n": 0, "s": 0.0, "args": None, "window": None}
-    heat_inner = thermodynamics.heat_columns
-
-    def heat_recorded(*a):
-        th["args"] = a
-        return heat_inner(*a)
+    th = {"n": 0, "s": 0.0, "window": None}
 
     def time_thermo_steps(region):
         step = region._thermo_step
@@ -679,12 +704,9 @@ def thermo_path(C, mesh):
     def window_starts():
         th["window"] = (th["n"], th["s"])
 
-    thermodynamics.heat_columns = heat_recorded
-    try:
+    with last_heat_call() as last:
         region, state, out = drive_full(C, mesh, "thermo_",
                                         time_thermo_steps, window_starts)
-    finally:
-        thermodynamics.heat_columns = heat_inner
 
     Ti = state.Ti
     pmp = calc_pressure_melting_point(region.md, state.Hi_eff)
@@ -714,7 +736,7 @@ def thermo_path(C, mesh):
          f"{TH_WINDOW_AXB_ITS}, {TH_X_GL_KM}): the rounding of the "
          "operators or of the heat solve changed")
     # the kernel on the path's own operands: those of its last call
-    return out, heat_case("heat_columns_thermo_path_last_step", th["args"])
+    return out, heat_case("heat_columns_thermo_path_last_step", last["args"])
 
 
 def halfar_phase():
@@ -725,12 +747,13 @@ def halfar_phase():
     from ufemism2_tpu_torch.main.region import ModelRegion
     from ufemism2_tpu_torch.ops import cuda_heat
     C = Config(**HALFAR)
-    cuda_heat.launches = 0
-    t0 = time.perf_counter()
-    region = ModelRegion(C, "ANT")
-    state = region.run_to(HALFAR_T_END)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
+    with last_heat_call() as last:
+        cuda_heat.launches = 0
+        t0 = time.perf_counter()
+        region = ModelRegion(C, "ANT")
+        state = region.run_to(HALFAR_T_END)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
     V = region.mesh.V
     H_exact = halfar_H(C.uniform_Glens_flow_factor,
                        C.Glens_flow_law_exponent,
@@ -750,7 +773,8 @@ def halfar_phase():
     check_state(state, "cuda")
     assert region.n_dt_ice > 10 and rmse < HALFAR_RMSE_M, rmse
     assert cuda_heat.launches == region.thermo_steps > 0
-    return out
+    # the kernel on the operands of the phase's last heat_columns call
+    return out, heat_case("heat_columns_halfar_last_step", last["args"])
 
 
 def check_state(state, device_type):
@@ -924,6 +948,9 @@ def main():
     heat_cases = [heat_case(f"heat_columns_{str(dt)[6:]}",
                             heat_operands(mesh.nV, mesh.zeta, dt, rng))
                   for dt in (torch.float32, torch.float64)]
+    # without the unstable columns: most columns stable at level 0
+    heat_cases.append(heat_case("heat_columns_stable_f32", heat_operands(
+        mesh.nV, mesh.zeta, torch.float32, rng, unstable=False)))
     # every nz but 12 takes the kernel's run-time-nz form: held to the bit
     # at old_15_layer_zeta's 15 layers and at an odd 7
     for choice, nz_x in (("old_15_layer_zeta", 15), ("irregular_log", 7)):
@@ -931,6 +958,25 @@ def main():
         heat_cases += [heat_case(f"heat_columns_nz{nz_x}_{str(dt)[6:]}",
                                  heat_operands(mesh.nV, zeta_x, dt, rng))
                        for dt in (torch.float32, torch.float64)]
+    # the edge operands of the design's CPU test at the mesh's size: inf
+    # (-inf in the last case) and NaN in every operand that can carry one,
+    # a level-0 pivot at the 1e-300 clamp and an overflowing cp
+    # (loaded by its path: another package named `tests` may be installed)
+    spec = importlib.util.spec_from_file_location(
+        "heat_design", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests", "test_torch_heat_design.py"))
+    design = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(design)
+    for nz_x, dt, inf in ((12, torch.float32, np.inf),
+                          (7, torch.float64, np.inf),
+                          (12, torch.float64, -np.inf)):
+        rng_e = np.random.default_rng(nz_x)
+        edge = design.place_every(design.operands(
+            nz_x, dt, "subgrid", 1.0, rng_e, n=mesh.nV), rng_e, inf)
+        heat_cases.append(heat_case(
+            f"heat_columns_edges_nz{nz_x}_{str(dt)[6:]}"
+            f"{'_neg' if inf < 0 else ''}",
+            [a.cuda() if isinstance(a, torch.Tensor) else a for a in edge]))
 
     # -- 5. small configuration: card (kernels) against CPU (plain) --------
     mesh_s_small = build_mesh_from_config(Config(**SMALL), "ANT")
@@ -956,8 +1002,8 @@ def main():
 
     # -- 8. thermodynamics path at full width, 9. Halfar dome (SIA) --------
     th, hot_heat = thermo_path(Config(**FULL_THERMO), mesh)
-    heat_cases.append(hot_heat)
-    halfar_phase()
+    _, halfar_heat = halfar_phase()
+    heat_cases += [hot_heat, halfar_heat]
 
     kernels = [{
         "name": "stack_spmv", "route": "cuda",

@@ -1,7 +1,7 @@
 // heat_columns: the column solves of the 3-D heat equation, for sm_90a.
 //
-// For every vertical column (one thread each) it does what the reference's
-// make_heat_solver `solve` does once the coefficient fields are formed
+// For every vertical column it does what the reference's make_heat_solver
+// `solve` does once the coefficient fields are formed
 // (ufemism2_tpu/core/ice/thermodynamics.py:302-369, on top of
 // ufemism2_tpu/ops/tridiag.py:16-54 thomas_batched):
 //
@@ -19,19 +19,43 @@
 // It replaces XLA-lowered code, not a Pallas kernel: in eager PyTorch the
 // same work is a Python loop of about 140 small launches per Thomas solve,
 // 62 solves a step, some 10,000 launches per thermodynamics step; here it
-// is one. The reference computes every level for every column and then
-// selects; this kernel stops a column at its first stable level, which
-// selects the same level and the same values.
+// is one.
 //
 // Bound: a solved column reads five [nz] rows of its type and writes one
-// f64 row, a thin column reads one and writes one; on the 8 km mesh
-// (13.7k columns x nz 12) that is 4-6 MB, 1.5-2 us at 3.35 TB/s
-// (chip_smoke.py counts it from each case's masks). The real limit is
-// latency: 13.7k threads, each walking a
-// chain of dependent f64 divisions (two per row of each solve), fill
-// about three warps an SM. Columns whose level 0 is unstable walk all five
-// levels (31 or 62 solves). A simple kernel that is right comes first;
-// spreading (column, level, boundary condition) over threads is later work.
+// f64 row; on the 8 km mesh (13.7k columns x nz 12) that is 4-6 MB,
+// 1.5-2 us at 3.35 TB/s, far above the f64 operations' time
+// (chip_smoke.py heat_bound counts both from each case's data). What
+// limits the kernel is latency: each substep is a chain of nz dependent
+// f64 divisions (__ddiv_rn is a multi-instruction sequence), and a column
+// has up to 31 substeps. The design cuts the chain and the work on it:
+//
+//   - levels in parallel: two lanes of one warp per column. Lane A walks
+//     levels 0-3 (15 substeps) and stops at the first stable one; lane B
+//     walks level 4 (16 substeps) speculatively and stops as soon as lane
+//     A is stable (a shuffle). Every level starts again from Ti, so the
+//     levels are independent; the chain is 16 substeps, not 31, and a
+//     column stable at level 0 still costs one substep.
+//   - one factorisation per level: the matrix of a level is the same in
+//     every substep and for both boundary conditions, so den (clamped at
+//     1e-300) and cp are formed once, fused into the level's first sweep,
+//     and kept in registers; a later substep is one dp sweep (one
+//     division a row) and the back substitution.
+//   - one right-hand side a substep: the two boundary conditions differ in
+//     the basal row only, so the forward sweep is shared and splits into
+//     two values there, followed by two independent back substitutions
+//     (instruction-level parallelism). The basal value is chosen per lane,
+//     so grounded, floating and mixed columns run the same instructions.
+//   - the non-finite exit: once a level's carry holds a non-finite value
+//     in an interior row, b_k, then dp_k, then x_k are non-finite in every
+//     later substep of the level, for both conditions and their mix (the
+//     boundary rows take their value from interior rows or from fixed
+//     operands), so the level is unstable: it stops there. The output is
+//     the same (tests/test_torch_heat_design.py proves it on the plain
+//     recurrence).
+//   - registers: the level-invariant rows (lo, up, the two dt-free parts
+//     of the diagonal, rhs, the start Ti) live once per column in shared
+//     memory; a lane keeps four [nz] arrays (carry, den, cp, dp). The
+//     run-time-nz form keeps them in local memory.
 //
 // Rounding contract: the result equals the plain version
 // (ops/cuda_heat.py heat_columns_plain, run on the card) to the bit. Every
@@ -47,10 +71,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef UF_HEAT_THREADS
-#define UF_HEAT_THREADS 64      // 13.7k columns: every SM gets a block
-#endif
+#define UF_HEAT_THREADS 64      // 32 columns a block, two lanes each
 #define UF_HEAT_MAX_NZ 64       // column limit of the run-time-nz kernel
+#define UF_FULL 0xffffffffu
 
 struct HeatDesc {               // ops/cuda_heat.py::_HeatDesc
     const void* Ti;             // [n, nz] T   temperature at the step's start
@@ -78,6 +101,9 @@ struct HeatDesc {               // ops/cuda_heat.py::_HeatDesc
 
 #define UF_T0 273.16            // utils/constants.py T0 [K]
 
+// the per-column rows in shared memory, [row][k][column of the block]
+enum { ROW_LO, ROW_UP, ROW_P1, ROW_P2, ROW_RH, ROW_TI, N_ROWS };
+
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
@@ -93,159 +119,196 @@ __device__ __forceinline__ T min_nan(T a, T b) {
     return a < b ? a : b;
 }
 
-// One implicit substep for one basal boundary condition: x solves
-// (diag, lo, up) x = b, with b formed from Tin as described above.
-template <typename T, int M>
-__device__ __forceinline__ void solve_column(
-        int nz, bool first, bool flux, const double (&Tin)[M],
-        const double (&rh)[M], const double (&lo)[M], const double (&up)[M],
-        const double (&diag)[M], double dt_i, T ts, T tbf, T pmp_base,
-        double q, double (&x)[M]) {
-    double b[M], cp[M], dp[M];
-    const T dt_t = (T)dt_i;
-#pragma unroll (M <= 16 ? M : 1)
-    for (int k = 0; k < M; ++k) {
-        if (k < nz) {
-            b[k] = first ? (double)add_rn((T)rh[k], div_rn((T)Tin[k], dt_t))
-                         : add_rn(rh[k], div_rn(Tin[k], dt_i));
-        }
-    }
-    // surface row: T = min(T_surf, T0); basal row: the boundary condition
-    b[0] = (double)min_nan(ts, (T)UF_T0);
-    const double tb = flux
-        ? min_nan((double)pmp_base, add_rn(Tin[nz - 2], -q))
-        : (double)min_nan(tbf, pmp_base);
-    b[nz - 1] = first ? (double)(T)tb : tb;
-
-    // forward sweep, then back substitution (thomas_batched)
-    double cprev = 0.0, dprev = 0.0;
-#pragma unroll (M <= 16 ? M : 1)
-    for (int k = 0; k < M; ++k) {
-        if (k < nz) {
-            double den = add_rn(diag[k], -mul_rn(lo[k], cprev));
-            if (fabs(den) < 1e-300) den = 1e-300;
-            cprev = div_rn(up[k], den);
-            dprev = div_rn(add_rn(b[k], -mul_rn(lo[k], dprev)), den);
-            cp[k] = cprev;
-            dp[k] = dprev;
-        }
-    }
-    double xn = 0.0;
-#pragma unroll (M <= 16 ? M : 1)
-    for (int k = M - 1; k >= 0; --k) {
-        if (k < nz) {
-            xn = add_rn(dp[k], -mul_rn(cp[k], xn));
-            x[k] = xn;
-        }
-    }
-}
-
 template <typename T, int NZ>
 __global__ void __launch_bounds__(UF_HEAT_THREADS)
 heat_columns_kernel(const HeatDesc d) {
     constexpr int M = NZ > 0 ? NZ : UF_HEAT_MAX_NZ;
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= d.n) return;
+    extern __shared__ double rows[];
     const int nz = NZ > 0 ? NZ : d.nz;
+    const int cols = blockDim.x >> 1;
+    const int c = threadIdx.x >> 1;
+    const int lane = threadIdx.x & 1;       // 0: levels 0-3, 1: level 4
+    const int i = blockIdx.x * cols + c;
+    const bool valid = i < d.n;
     const size_t o = (size_t)i * nz;
+#define ROW(r, k) rows[((r) * nz + (k)) * cols + c]
+
     const T* pmp = static_cast<const T*>(d.Ti_pmp) + o;
     double* out = d.out + o;
-    const T ts = static_cast<const T*>(d.T_surf)[i];
-
-    if (d.thin[i]) {                        // no solve: surface temperature
-        for (int k = 0; k < nz; ++k)
-            out[k] = min_nan((double)ts, (double)pmp[k]);
-        return;
-    }
-
-    const T* Ti = static_cast<const T*>(d.Ti) + o;
-    const T* cdd = static_cast<const T*>(d.c_dd) + o;
-    const T* cd2 = static_cast<const T*>(d.c_d2) + o;
-    const T* rhs = static_cast<const T*>(d.rhs) + o;
-    const double* l1 = d.zrows;
-    const double* d1 = d.zrows + nz;
-    const double* u1 = d.zrows + 2 * nz;
-    const double* l2 = d.zrows + 3 * nz;
-    const double* d2 = d.zrows + 4 * nz;
-    const double* u2 = d.zrows + 5 * nz;
-
-    // coefficients that do not depend on dt: the sub- and super-diagonal
-    // (zero in the boundary rows) and the two dt-free parts of the diagonal.
-    // T -> f64 is exact, so T values are kept as f64 and cast back exactly.
-    double lo[M], up[M], p1[M], p2[M], rh[M], T0v[M];
-#pragma unroll (M <= 16 ? M : 1)
-    for (int k = 0; k < M; ++k) {
-        if (k < nz) {
-            const double a = (double)cdd[k], c = (double)cd2[k];
-            p1[k] = mul_rn(a, d1[k]);
-            p2[k] = mul_rn(c, d2[k]);
-            lo[k] = (k >= 1 && k <= nz - 2)
-                ? add_rn(mul_rn(a, l1[k - 1]), mul_rn(c, l2[k - 1])) : 0.0;
-            up[k] = (k >= 1 && k <= nz - 2)
-                ? add_rn(mul_rn(a, u1[k]), mul_rn(c, u2[k])) : 0.0;
-            rh[k] = (double)rhs[k];
-            T0v[k] = (double)Ti[k];
-        }
-    }
-
-    const T tbf = static_cast<const T*>(d.T_base_float)[i];
-    const T pmp_base = pmp[nz - 1];
-    const T fg = static_cast<const T*>(d.fraction_gr)[i];
-    const double fg_g = (double)fg;
-    const double fg_f = (double)add_rn((T)1, -fg);
-    const double q = d.q_base[i];
-    // which boundary condition(s) the column's mask needs: 0 the grounded
-    // (flux) one, 1 the floating (pmp) one, 2 both, mixed by fraction_gr
-    const int sel = d.gl_gr[i] ? d.gl_bc
-                  : (d.grounded[i] ? 0 : (d.floating[i] ? 1 : 0));
-
-    double Tc[M], Tg[M], Tf[M], diag[M];
-    bool ok = false;
-    double scale = 1.0;
-    for (int lev = 0; lev < 5 && !ok; ++lev, scale *= 0.5) {
-        const double dt_i = d.dt * scale;           // dt * 0.5**lev
-        const double inv_dt = div_rn(1.0, dt_i);
-#pragma unroll (M <= 16 ? M : 1)
-        for (int k = 0; k < M; ++k) {
-            if (k < nz) {
-                diag[k] = add_rn(add_rn(inv_dt, p1[k]), p2[k]);
-                Tc[k] = T0v[k];
+    const bool thin = !valid || d.thin[i];
+    if (valid) {
+        const T ts = static_cast<const T*>(d.T_surf)[i];
+        if (thin) {                         // no solve: surface temperature
+            for (int k = lane; k < nz; k += 2)
+                out[k] = min_nan((double)ts, (double)pmp[k]);
+        } else {
+            // coefficients that do not depend on dt: the sub- and
+            // super-diagonal (zero in the boundary rows) and the two dt-free
+            // parts of the diagonal, then rhs and the start Ti. T -> f64 is
+            // exact, so T values are kept as f64 and cast back exactly.
+            const T* Ti = static_cast<const T*>(d.Ti) + o;
+            const T* cdd = static_cast<const T*>(d.c_dd) + o;
+            const T* cd2 = static_cast<const T*>(d.c_d2) + o;
+            const T* rhs = static_cast<const T*>(d.rhs) + o;
+            const double* z = d.zrows;      // l1 d1 u1 l2 d2 u2, [nz] each
+            // unrolled, so that all of a lane's loads are in flight at once
+#pragma unroll (NZ > 0 ? NZ : 1)
+            for (int k0 = 0; k0 < nz; k0 += 2) {
+                const int k = k0 + lane;
+                if (k >= nz) break;
+                const double a = (double)cdd[k], b = (double)cd2[k];
+                const bool inner = k >= 1 && k <= nz - 2;
+                ROW(ROW_LO, k) = inner ? add_rn(mul_rn(a, z[k - 1]),
+                                                mul_rn(b, z[3 * nz + k - 1]))
+                                       : 0.0;
+                ROW(ROW_UP, k) = inner ? add_rn(mul_rn(a, z[2 * nz + k]),
+                                                mul_rn(b, z[5 * nz + k]))
+                                       : 0.0;
+                ROW(ROW_P1, k) = mul_rn(a, z[nz + k]);
+                ROW(ROW_P2, k) = mul_rn(b, z[4 * nz + k]);
+                ROW(ROW_RH, k) = (double)rhs[k];
+                ROW(ROW_TI, k) = (double)Ti[k];
             }
         }
-        diag[0] = 1.0;
-        diag[nz - 1] = 1.0;
-        for (int s = 0; s < (1 << lev); ++s) {
+    }
+    __syncthreads();
+
+    // the column's constants: surface row, boundary values, mix weights
+    double b_surf = 0.0, base_f = 0.0, pmp_base = 0.0, q = 0.0;
+    double fg_g = 0.0, fg_f = 0.0;
+    int sel = 0;
+    if (!thin) {
+        const T ts = static_cast<const T*>(d.T_surf)[i];
+        const T pb = pmp[nz - 1];
+        const T fg = static_cast<const T*>(d.fraction_gr)[i];
+        b_surf = (double)min_nan(ts, (T)UF_T0);
+        base_f = (double)min_nan(static_cast<const T*>(d.T_base_float)[i], pb);
+        pmp_base = (double)pb;
+        q = d.q_base[i];
+        fg_g = (double)fg;
+        fg_f = (double)add_rn((T)1, -fg);
+        // which boundary condition(s) the column's mask needs: 0 the
+        // grounded (flux) one, 1 the floating (pmp) one, 2 both, mixed by
+        // fraction_gr
+        sel = d.gl_gr[i] ? d.gl_bc
+            : (d.grounded[i] ? 0 : (d.floating[i] ? 1 : 0));
+    }
+
+    double Tc[M], den[M], cp[M], dp[M];
+    bool done = thin, found = false;
+    int lev = lane ? 4 : 0, s = 0;
+    double dt_i = 0.0, inv_dt = 0.0;
+    while (__any_sync(UF_FULL, !done)) {
+        if (!done) {
             const bool first = s == 0;
-            if (sel != 1)
-                solve_column<T, M>(nz, first, true, Tc, rh, lo, up, diag, dt_i,
-                                   ts, tbf, pmp_base, q, Tg);
-            if (sel != 0)
-                solve_column<T, M>(nz, first, false, Tc, rh, lo, up, diag,
-                                   dt_i, ts, tbf, pmp_base, q, Tf);
-#pragma unroll (M <= 16 ? M : 1)
-            for (int k = 0; k < M; ++k) {
-                if (k < nz) {
-                    Tc[k] = sel == 0 ? Tg[k]
-                         : sel == 1 ? Tf[k]
-                         : add_rn(mul_rn(fg_g, Tg[k]), mul_rn(fg_f, Tf[k]));
+            if (first) {                    // a level starts again from Ti
+                dt_i = mul_rn(d.dt, 1.0 / (double)(1 << lev));
+                inv_dt = div_rn(1.0, dt_i);
+#pragma unroll (NZ > 0 ? NZ : 1)
+                for (int k = 0; k < nz; ++k) Tc[k] = ROW(ROW_TI, k);
+            }
+            // the basal values, from the carry before it is overwritten;
+            // in the first substep they are rounded to T (b is a T array)
+            const double tg = min_nan(pmp_base, add_rn(Tc[nz - 2], -q));
+            const double tb1 = sel == 1 ? base_f
+                             : (first ? (double)(T)tg : tg);
+            const double tb2 = base_f;
+
+            // forward sweep over the rows above the basal one, shared by
+            // both boundary conditions; the level's first sweep also forms
+            // den and cp (thomas_batched's operations in its order)
+            double cprev = 0.0, dprev = 0.0;
+#pragma unroll (NZ > 0 ? NZ : 1)
+            for (int k = 0; k < nz - 1; ++k) {
+                const double bk = k == 0 ? b_surf
+                    : first ? (double)add_rn((T)ROW(ROW_RH, k),
+                                             div_rn((T)Tc[k], (T)dt_i))
+                            : add_rn(ROW(ROW_RH, k), div_rn(Tc[k], dt_i));
+                const double lk = ROW(ROW_LO, k);
+                if (first) {
+                    const double diag = k == 0 ? 1.0
+                        : add_rn(add_rn(inv_dt, ROW(ROW_P1, k)),
+                                 ROW(ROW_P2, k));
+                    double dn = add_rn(diag, -mul_rn(lk, cprev));
+                    if (fabs(dn) < 1e-300) dn = 1e-300;
+                    cprev = div_rn(ROW(ROW_UP, k), dn);
+                    den[k] = dn;
+                    cp[k] = cprev;
+                }
+                dprev = div_rn(add_rn(bk, -mul_rn(lk, dprev)), den[k]);
+                dp[k] = dprev;
+            }
+            // the basal row (diag 1), once per boundary condition
+            const int kb = nz - 1;
+            const double lb = ROW(ROW_LO, kb);
+            if (first) {
+                double dn = add_rn(1.0, -mul_rn(lb, cprev));
+                if (fabs(dn) < 1e-300) dn = 1e-300;
+                den[kb] = dn;
+                cp[kb] = div_rn(ROW(ROW_UP, kb), dn);
+            }
+            const double m = mul_rn(lb, dprev);
+            double x1 = div_rn(add_rn(tb1, -m), den[kb]);
+            double x2 = div_rn(add_rn(tb2, -m), den[kb]);
+            x1 = add_rn(x1, -mul_rn(cp[kb], 0.0));
+            x2 = add_rn(x2, -mul_rn(cp[kb], 0.0));
+            Tc[kb] = sel == 2 ? add_rn(mul_rn(fg_g, x1), mul_rn(fg_f, x2))
+                              : x1;
+            // two back substitutions side by side
+#pragma unroll (NZ > 0 ? NZ : 1)
+            for (int k = nz - 2; k >= 0; --k) {
+                x1 = add_rn(dp[k], -mul_rn(cp[k], x1));
+                x2 = add_rn(dp[k], -mul_rn(cp[k], x2));
+                Tc[k] = sel == 2 ? add_rn(mul_rn(fg_g, x1), mul_rn(fg_f, x2))
+                                 : x1;
+            }
+            ++s;
+
+            // the non-finite exit, and the level's end
+            bool fin = true;
+#pragma unroll (NZ > 0 ? NZ : 1)
+            for (int k = 1; k < nz - 1; ++k) fin = fin && isfinite(Tc[k]);
+            if (!fin || s == (1 << lev)) {
+                bool stable = fin;
+#pragma unroll (NZ > 0 ? NZ : 1)
+                for (int k = 0; k < nz; ++k) {
+                    const double v = Tc[k];
+                    stable = stable && isfinite(v) && v >= 180.0 && v <= UF_T0;
+                }
+                if (stable) {
+                    found = true;
+                    done = true;
+                } else if (lane == 0 && lev < 3) {
+                    ++lev;
+                    s = 0;
+                } else {
+                    done = true;
                 }
             }
         }
-        bool stable = true;
-#pragma unroll (M <= 16 ? M : 1)
-        for (int k = 0; k < M; ++k) {
-            if (k < nz) {
-                const double v = Tc[k];
-                stable = stable && isfinite(v) && v >= 180.0 && v <= UF_T0;
-            }
-        }
-        ok = stable;
+        // lane B's level 4 is needed only if lane A finds no stable level
+        if (__shfl_xor_sync(UF_FULL, found, 1) && lane == 1) done = true;
     }
 
-    const double* robin = d.T_robin + o;
-    if (!ok) atomicAdd(d.n_unstable, 1);
-    for (int k = 0; k < nz; ++k)
-        out[k] = min_nan(ok ? Tc[k] : robin[k], (double)pmp[k]);
+    // the first stable level wins: lane A's if it found one, else lane B's
+    const bool other = __shfl_xor_sync(UF_FULL, found, 1);
+    const bool a_found = lane ? other : found;
+    const bool ok = found || other;
+    if (!thin) {
+        if (found && (lane == 0 || !a_found)) {
+#pragma unroll (NZ > 0 ? NZ : 1)
+            for (int k = 0; k < nz; ++k)
+                out[k] = min_nan(Tc[k], (double)pmp[k]);
+        } else if (!ok) {
+            const double* robin = d.T_robin + o;
+            for (int k = lane; k < nz; k += 2)
+                out[k] = min_nan(robin[k], (double)pmp[k]);
+        }
+    }
+    const unsigned unstable = __ballot_sync(UF_FULL, !thin && !ok && lane == 0);
+    if ((threadIdx.x & 31) == 0 && unstable)
+        atomicAdd(d.n_unstable, __popc(unstable));
+#undef ROW
 }
 
 template <typename T>
@@ -253,13 +316,17 @@ static int heat_columns(const HeatDesc& d, cudaStream_t stream) {
     if (d.n == 0) return 0;
     if (d.nz < 3 || d.nz > UF_HEAT_MAX_NZ || d.gl_bc < 0 || d.gl_bc > 2)
         return (int)cudaErrorInvalidValue;
-    const int blocks = (d.n + UF_HEAT_THREADS - 1) / UF_HEAT_THREADS;
+    // shared rows within the 48 KB a block gets without opting in
+    const int threads = d.nz <= 32 ? UF_HEAT_THREADS : UF_HEAT_THREADS / 2;
+    const int cols = threads / 2;
+    const size_t smem = (size_t)N_ROWS * d.nz * cols * sizeof(double);
+    const int blocks = (d.n + cols - 1) / cols;
     switch (d.nz) {             // the schema's nz unrolled, any other at run time
         case 12:
-            heat_columns_kernel<T, 12><<<blocks, UF_HEAT_THREADS, 0, stream>>>(d);
+            heat_columns_kernel<T, 12><<<blocks, threads, smem, stream>>>(d);
             break;
         default:
-            heat_columns_kernel<T, 0><<<blocks, UF_HEAT_THREADS, 0, stream>>>(d);
+            heat_columns_kernel<T, 0><<<blocks, threads, smem, stream>>>(d);
     }
     return (int)cudaGetLastError();
 }
