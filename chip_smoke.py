@@ -19,16 +19,25 @@ of which ends the run with a non-zero exit if it fails:
               shapes, with timings and the bound; torch.sparse.mm is the
               library yardstick of stack_spmv, 62 dense torch.linalg.solve
               calls that of heat_columns (no one PyTorch call computes
-              diva_apply). heat_columns must equal its plain version to
-              the bit, at nz 12 (its unrolled form: random operands in
-              f32 and f64, and an all-stable f32 case), at nz 15 and 7
+              diva_apply). diva_apply is also checked with an
+              ocean-pressure calving front carved into the 8 km mesh at
+              x = 400 km (f32 with and without the bfloat16 rounding,
+              f64), on random operands, where every row must equal the
+              plain version to the bit. heat_columns must equal its
+              plain version to the bit, at nz 12 (its unrolled form:
+              random operands in f32 and f64, and an all-stable f32
+              case), at nz 15 and 7
               (its run-time-nz form), and on the edge operands of
               tests/test_torch_heat_design.py at nz 12 and 7 (inf, -inf
               and NaN in every operand that can carry one, a pivot at the
               1e-300 clamp, an overflowing factor).
 5. small    - the coarse 64 km configuration in f64 on the card (CUDA
               kernels) against the same run on the CPU (plain versions),
-              with thermodynamics off and on.
+              with thermodynamics off and on; and a 40 km MISMIP+
+              configuration with 500 m of initial ice (a grounding line,
+              so the flow-factor tuning fires) through program.main on the
+              card and with --device cpu, f64, held to the same steps,
+              viscosity iterations and tuned flow factor.
 6. main     - ModelRegion(C, "ANT") on the card in f32 (initial DIVA
               solve from zero velocity), then run_to through the start-up
               transient and over a measured window of model years, with
@@ -51,6 +60,21 @@ of which ends the run with a non-zero exit if it fails:
 9. halfar   - the Halfar dome (SIA) in f64 to 200 model years, held to the
               analytical solution; then the kernel case on the operands
               of the phase's last heat_columns call.
+10. mismipplus - a stand-in MISMIP+ configuration (written inline, as a
+              .cfg file) through the program's entry point,
+              program.main([cfg, "--output-dir", dir]), on the card in
+              f32: the ocean-pressure calving front, Weertman sliding,
+              the flow-factor tuning; the kernels' launches counted
+              around it, the trajectory held to the MP_* counts below;
+              then diva_apply on the operands of the run's last apply.
+11. precond - one linear solve of the MISMIP+ run's last system with each
+              preconditioner (block_jacobi, chebyshev, neumann,
+              block_dense, two_level) in f64 on the card, built as the
+              program builds it, by GMRES at the program's restart of 60
+              (those in MP_CONVERGE_AT_RESTART must converge, the others
+              must not) and by GMRES(300) (every one but block_jacobi must
+              converge); converged means below the iteration cap with the
+              true residual within the stopping rule.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -63,6 +87,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -157,6 +182,82 @@ HALFAR = dict(
     allow_mesh_updates=False,
 )
 HALFAR_T_END, HALFAR_RMSE_M = 200.0, 80.0      # tests/test_halfar.py limit
+# A stand-in for the reference's MISMIP+ spin-up config
+# (config_01_5km_spinup_part0.cfg, not in the repository), written from the
+# MISMIP+ protocol (Asay-Davis et al. 2016, GMD 9:2471, Table 1): the
+# MISMIP+ bed, 100 m of initial ice with no ice beyond x = 640 km, a domain
+# reaching past it (x 0-800 km, y +-40 km) so that the ocean-pressure
+# calving front acts, DIVA, Weertman sliding (m = 3, beta^2 1e4 Pa m^-1/3
+# yr^1/3 = C 3.16e6 Pa m^-1/3 s^1/3), A = 2e-17 Pa^-3 yr^-1, SMB 0.3 m/yr,
+# BMB 0, 5 km at the grounding line, the protocol's boundaries (u = 0 at
+# the ice divide x = 0 with the thickness mirrored there, free-slip side
+# walls: v = 0 and du/dy = 0 at y = +-40 km); f32, fixed mesh,
+# thermodynamics off, the flow-factor tuning on. Cut: one model year in
+# four coupling intervals (the spin-up runs 20,000).
+MISMIPPLUS = dict(
+    do_ANT=True,
+    choice_refgeo_init_ANT="idealised", choice_refgeo_init_idealised="MISMIP+",
+    choice_refgeo_PD_ANT="idealised", choice_refgeo_PD_idealised="MISMIP+",
+    refgeo_idealised_MISMIPplus_Hi_init=100.0, dx_refgeo_init_idealised=2e3,
+    choice_mask_noice="MISMIP+", refgeo_idealised_MISMIPplus_tune_A=True,
+    xmin_ANT=0.0, xmax_ANT=800e3, ymin_ANT=-40e3, ymax_ANT=40e3,
+    maximum_resolution_uniform=20e3, maximum_resolution_grounded_ice=10e3,
+    maximum_resolution_floating_ice=10e3,
+    maximum_resolution_grounding_line=5e3, grounding_line_width=5e3,
+    maximum_resolution_calving_front=5e3, calving_front_width=5e3,
+    maximum_resolution_ice_front=10e3, ice_front_width=10e3,
+    nit_Lloyds_algorithm=2, allow_mesh_updates=False, refgeo_Hi_min=2.0,
+    choice_stress_balance_approximation="DIVA", BC_ice_front="ocean_pressure",
+    choice_sliding_law="Weertman", slid_Weertman_m=3.0,
+    slid_Weertman_beta_sq_uniform=1e4,
+    choice_ice_rheology_Glen="uniform", uniform_Glens_flow_factor=2.0e-17,
+    choice_thermo_model="none", choice_initial_ice_temperature_ANT="uniform",
+    choice_SMB_model_ANT="uniform", uniform_SMB=0.3,
+    choice_BMB_model_ANT="uniform", uniform_BMB=0.0,
+    BC_u_west="zero", BC_v_west="infinite", BC_H_west="infinite",
+    BC_u_north="infinite", BC_v_north="zero",
+    BC_u_south="infinite", BC_v_south="zero",
+    tpu_precision="f32",
+    start_time_of_run=0.0, end_time_of_run=1.0, dt_coupling=0.25,
+    dt_output=0.25,
+)
+# its f32 trajectory on the card: GMRES iterations of the initial solve,
+# Krylov iterations of the run, ice volume at its end [m^3], fixed by the
+# first run of the phase on an NVIDIA H100 80GB HBM3
+MP_INIT_GMRES_ITS, MP_AXB_ITS, MP_ICE_VOLUME_M3 = 8928, 56126, 4.109745379e12
+# The MISMIP+ configuration of tests/test_torch_program.py (RUN) in f64:
+# 40 km, 500 m of initial ice in the MISMIP+ mask, so that a grounding line
+# exists and the flow-factor tuning fires in the second and third coupling
+# intervals; three coupling intervals of 0.1 yr. Run through program.main
+# on the card and on the CPU (the same run the CPU test holds to the JAX
+# package's run_model).
+MP_SMALL = dict(
+    do_ANT=True,
+    choice_refgeo_init_ANT="idealised", choice_refgeo_init_idealised="MISMIP+",
+    choice_refgeo_PD_ANT="idealised", choice_refgeo_PD_idealised="MISMIP+",
+    refgeo_idealised_MISMIPplus_Hi_init=500.0, dx_refgeo_init_idealised=10e3,
+    choice_mask_noice="MISMIP+", refgeo_idealised_MISMIPplus_tune_A=True,
+    choice_stress_balance_approximation="DIVA", choice_sliding_law="Weertman",
+    slid_Weertman_beta_sq_uniform=1e4, BC_ice_front="ocean_pressure",
+    choice_ice_rheology_Glen="uniform", uniform_Glens_flow_factor=2.0e-17,
+    choice_thermo_model="none", choice_initial_ice_temperature_ANT="uniform",
+    choice_BMB_model_ANT="uniform", uniform_BMB=0.0,
+    uniform_SMB=0.3, choice_SMB_model_ANT="uniform",
+    xmin_ANT=0.0, xmax_ANT=800e3, ymin_ANT=-40e3, ymax_ANT=40e3,
+    maximum_resolution_uniform=40e3, maximum_resolution_grounded_ice=40e3,
+    maximum_resolution_grounding_line=40e3,
+    nit_Lloyds_algorithm=2, refgeo_Hi_min=2.0,
+    allow_mesh_updates=False, visc_it_nit=3, pc_nit_max=2,
+    start_time_of_run=0.0, end_time_of_run=0.3, dt_coupling=0.1,
+)
+# the preconditioners held to a converged solve of the run's last system in
+# GMRES(MP_PRECOND_RESTART), block_jacobi (the run's own) beside them; and
+# those that converge in GMRES at the program's restart of 60 (all five),
+# fixed by the first run of the phase on an NVIDIA H100 80GB HBM3
+MP_PRECONDS = ("chebyshev", "neumann", "block_dense", "two_level")
+MP_PRECOND_RESTART = 300
+MP_CONVERGE_AT_RESTART = ("block_jacobi", "chebyshev", "neumann",
+                          "block_dense", "two_level")
 
 
 def say(phase, **kv):
@@ -312,13 +413,52 @@ def diva_operands(mesh, m2, dtype, rng):
     return S, rows, fields, x
 
 
-def diva_case(name, mesh, m2, dtype, round_x, rng):
-    """One diva_apply comparison: kernel vs plain on the same operands,
-    plus the roofline bound for this data."""
+def carved_front(mesh, x_front=400e3):
+    """The ocean-pressure front of a slab of ice 200-1,200 m thick with the
+    ice removed beyond x = x_front (as the JAX package's front test carves
+    it), from the port's calc_front in f64 on the card: (is_front, off,
+    n_x, n_y)."""
+    from ufemism2_tpu_torch.core.ice.ssadiva import calc_front
+    from ufemism2_tpu_torch.core.mesh_data import build_mesh_data
+    md = build_mesh_data(mesh, dtype=torch.float64, device="cuda")
+    rng = np.random.default_rng(400)
+    V = mesh.V
+    Hi = np.where(V[:, 0] > x_front, 0.0, 200.0 + 1000.0 * rng.random(len(V)))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float64, device="cuda")
+    Hi, Hb = t(Hi), t(-500.0 * np.ones(len(V)))
+    f = calc_front(md, Hi, Hb, torch.zeros_like(Hi),
+                   md.M_map_a_b.exact_matvec(Hi))
+    assert bool(f.is_front.any()) and bool(f.off.any())
+    return f[:4]
+
+
+def diva_case(name, mesh, m2, dtype, round_x, rng, front=None):
+    """One diva_apply comparison on random operands (with an ocean-pressure
+    front when `front` is given, cast to `dtype`): see diva_check."""
     from ufemism2_tpu_torch.ops import cuda_spmv
     S, rows, fields, x = diva_operands(mesh, m2, dtype, rng)
-    n = mesh.nTri
-    A = cuda_spmv.DivaOperator(S.op, rows, *fields, round_x_bf16=round_x)
+    if front is not None:
+        front = tuple(f.to(dtype) if f.is_floating_point() else f
+                      for f in front)
+    A = cuda_spmv.DivaOperator(S.op, rows, *fields, round_x_bf16=round_x,
+                               front=front)
+    return diva_check(name, A, x, [m.tocsr() for m in m2])
+
+
+def diva_check(name, A, x, m2=None):
+    """The kernel behind the operator A (a DivaOperator on the card)
+    against its plain version on the flat operand x, plus timings and the
+    roofline bound for this data. With an ocean-pressure front every row
+    must equal the plain version to the bit (that instance sums the
+    derivatives in the plain version's order, without fused multiply-adds).
+    Without one, the rows whose arithmetic has one order - the boundary
+    rows (copies and three-term sums of the unrounded operand, added in the
+    plain version's order) - must equal it to the bit, and the free rows
+    must agree to a few ulps of the largest result (the infinite-slab
+    instance sums the derivatives with fused multiply-adds)."""
+    from ufemism2_tpu_torch.ops import cuda_spmv
+    S, rows, n = A.stack, A.rows, A.n
+    dtype = x.dtype
     n0 = cuda_spmv.diva_launches
     y = A.flat(x)
     yu, yv = A((x[:n], x[n:]))
@@ -326,21 +466,25 @@ def diva_case(name, mesh, m2, dtype, round_x, rng):
     assert cuda_spmv.diva_launches == n0 + 2
     assert torch.equal(torch.cat([yu, yv]), y)
     plain = lambda: cuda_spmv.diva_apply_plain(
-        (S.cols, S.vals), rows, *fields, x[:n], x[n:], round_x)
+        (S.cols, S.vals), rows, *A.fields, x[:n], x[n:], A.round, A.front)
     y_ref = torch.cat(plain())
     torch.cuda.synchronize()
     assert y.shape == y_ref.shape and y.dtype == dtype
     scale = float(y_ref.abs().max())
     err = float((y - y_ref).abs().max())
-    # the kernel's k-loop, its fused multiply-adds and the plain version's
-    # reductions sum in different orders: a few ulps of the largest result
     tol = (1e-5 if dtype == torch.float32 else 1e-12) * scale
-    # rows that are not free hold copies and three-term sums of the
-    # unrounded operand, added in the plain version's order: equal to it
-    # to the bit
-    bdry = torch.cat([~rows.free, ~rows.free])
-    err_bdry = float((y - y_ref)[bdry].abs().max())
-    ok = bool(torch.isfinite(y).all()) and err <= tol and err_bdry == 0.0
+    one_order = ~rows.free
+    n_front = n_off = 0
+    if A.front is not None:
+        is_front, off = A.front[0], A.front[1]
+        one_order = (one_order & ~is_front) | off
+        n_front, n_off = int(is_front.sum()), int(off.sum())
+    one_order = torch.cat([one_order, one_order])
+    err_one = float((y - y_ref)[one_order].abs().max()) \
+        if bool(one_order.any()) else 0.0
+    bit_equal = bool(torch.equal(y, y_ref))
+    ok = bool(torch.isfinite(y).all()) and err <= tol and err_one == 0.0 \
+        and (bit_equal or A.front is None)
 
     ms = time_ms(lambda: A.flat(x), REPS)
     n1 = cuda_spmv.diva_launches
@@ -349,20 +493,26 @@ def diva_case(name, mesh, m2, dtype, round_x, rng):
     plain_ms = time_ms(plain, max(REPS // 10, 5))
 
     size = x.element_size()
-    nnz = int(sum(abs(m) for m in m2).tocsr().nnz)
+    if m2 is not None:
+        nnz = int(sum(abs(m) for m in m2).tocsr().nnz)
+    else:          # the stored pattern: entries with a coefficient
+        nnz = int((S.vals != 0).any(dim=0).sum())
     n_bdry = int((~rows.free).sum())
     # in: the shared index table and five coefficient tables, u, v, four
-    # fields, the row code and the boundary rows' neighbour table;
+    # fields, the row code (the operator's own with a front) and the
+    # boundary rows' neighbour table, the normals of the front rows;
     # out: Au, Av
     nbytes = (nnz * 4 + 5 * nnz * size + 6 * n * size + n
-              + n_bdry * 12 + 2 * n * size)
+              + n_bdry * 12 + 2 * n_front * size + 2 * n * size)
     flops = 2 * 5 * nnz * 2 + 30 * n
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_flops = flops / H100_FLOPS[dtype] * 1e3
     out = dict(case=name, n_rows=n, K=S.K, nnz=nnz, boundary_rows=n_bdry,
-               dtype=str(dtype).replace("torch.", ""), round_x_bf16=round_x,
+               front_rows=n_front, off_rows=n_off,
+               dtype=str(dtype).replace("torch.", ""), round_x_bf16=A.round,
                max_abs_err=err, tol=tol, max_abs_y=scale,
-               max_abs_err_boundary=err_bdry, ms=ms, device_ms=device_ms,
+               max_abs_err_one_order_rows=err_one, bit_equal=bit_equal,
+               ms=ms, device_ms=device_ms,
                plain_ms=plain_ms, library_ms=None, bytes=nbytes, flops=flops,
                bound_ms=max(t_bytes, t_flops),
                bound_by="bytes" if t_bytes >= t_flops else "operations",
@@ -370,8 +520,9 @@ def diva_case(name, mesh, m2, dtype, round_x, rng):
     say("diva_case", **out)
     if not ok:
         raise SystemExit(f"diva_apply disagrees with its plain version in "
-                         f"case {name}: err {err:.3e} > tol {tol:.3e} or "
-                         f"boundary rows differ by {err_bdry:.3e}")
+                         f"case {name}: err {err:.3e} > tol {tol:.3e}, or "
+                         f"rows of one order differ by {err_one:.3e}, or "
+                         f"with a front not bit-equal ({bit_equal})")
     return out
 
 
@@ -563,6 +714,58 @@ def small_phase(phase, Cs, mesh_s):
     assert r_cpu.thermo_steps == r_gpu.thermo_steps
     assert gaps["Ti"] <= 1e-12, gaps
     return gaps
+
+
+def small_mismipplus_phase(workdir):
+    """MP_SMALL through program.main on the card (kernels, the front
+    instance of diva_apply) and with --device cpu (plain versions), f64:
+    the same ice steps and viscosity iterations, the same tuned flow
+    factor, fields within small_phase's gaps. Ties the card's front,
+    Weertman and tuning path to the CPU path that the CPU tests hold to
+    the JAX package."""
+    from ufemism2_tpu_torch.main import program
+    from ufemism2_tpu_torch.ops import cuda_spmv
+    cfg = write_namelist(os.path.join(workdir, "mismipplus_small.cfg"),
+                         MP_SMALL)
+    runs, seconds = {}, {}
+    for dev in ("cpu", "cuda"):
+        n0 = cuda_spmv.diva_launches
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            runs[dev] = program.main([cfg, "--output-dir", os.path.join(
+                workdir, f"mismipplus_small_{dev}"), "--device", dev])["ANT"]
+        seconds[dev] = time.perf_counter() - t0
+    launches = cuda_spmv.diva_launches - n0
+    rc, rg = runs["cpu"], runs["cuda"]
+    sc, sg = rc.state, rg.state
+    gaps = {}
+    for name in ("Hi", "u_vav_b", "v_vav_b"):
+        a, b = getattr(sc, name), getattr(sg, name).cpu()
+        gaps[name] = float((a - b).abs().max() / a.abs().max())
+    scale = [float(r.md.x("glen_A_scale")) for r in (rc, rg)]
+    x_GL = [program.mismipplus_x_GL(r.C, r) for r in (rc, rg)]
+    out = dict(nV=rg.mesh.nV, nTri=rg.mesh.nTri, steps=[rc.n_dt_ice,
+               rg.n_dt_ice], n_visc_its=[sc.n_visc_its, sg.n_visc_its],
+               n_Axb_its=[sc.n_Axb_its, sg.n_Axb_its], rel_gap=gaps,
+               glen_A_scale=scale,
+               x_GL_km=[None if x is None else x / 1e3 for x in x_GL],
+               tune_gain=[rc._mismip_tune["gain"], rg._mismip_tune["gain"]],
+               diva_apply_launches_card=launches,
+               seconds_cpu=seconds["cpu"], seconds_card=seconds["cuda"])
+    say("small_mismipplus", **out)
+    assert rg.md.device.type == "cuda" and rc.md.device.type == "cpu"
+    assert launches > 0, "the card's run did not go through diva_apply"
+    assert rc.n_dt_ice == rg.n_dt_ice >= 3
+    assert sc.n_visc_its == sg.n_visc_its
+    assert abs(sc.n_Axb_its - sg.n_Axb_its) <= 0.02 * sc.n_Axb_its
+    assert gaps["Hi"] < 1e-6 and gaps["u_vav_b"] < 1e-5 \
+        and gaps["v_vav_b"] < 1e-5, gaps
+    # the tuning fired, on both devices alike (tests/test_torch_program.py
+    # holds the CPU's factor to the JAX package's within 1e-9)
+    assert None not in x_GL and scale[0] != 1.0
+    assert rc._mismip_tune["gain"] == rg._mismip_tune["gain"]
+    assert abs(scale[1] - scale[0]) <= 1e-9 * scale[0], scale
+    return out
 
 
 def drive_full(C, mesh, tag, after_construct=None, after_warm=None):
@@ -777,6 +980,199 @@ def halfar_phase():
     return out, heat_case("heat_columns_halfar_last_step", last["args"])
 
 
+def write_namelist(path, values):
+    """`values` as a reference-style `&CONFIG ... /` namelist file."""
+    def lit(v):
+        if isinstance(v, bool):
+            return ".TRUE." if v else ".FALSE."
+        return f"'{v}'" if isinstance(v, str) else repr(v)
+    lines = [f"  {k}_config = {lit(v)}" for k, v in values.items()]
+    with open(path, "w") as f:
+        f.write("\n".join(["&CONFIG", *lines, "/"]) + "\n")
+    return path
+
+
+def mismipplus_phase(workdir):
+    """The MISMIP+ stand-in through the program's entry point on the card
+    (python -m ufemism2_tpu_torch <cfg> --output-dir DIR), with every
+    kernel count set to 0 before and read after; the GMRES calls counted
+    and the last one's operator and operands kept. Wall times come from
+    the program's own resource_tracking.jsonl."""
+    from ufemism2_tpu_torch.core.ice import ssadiva
+    from ufemism2_tpu_torch.main import program
+    from ufemism2_tpu_torch.main.region import ModelRegion
+    from ufemism2_tpu_torch.ops import cuda_heat, cuda_spmv
+    from ufemism2_tpu_torch.utils.logging_utils import get_tracker
+    cfg = write_namelist(os.path.join(workdir, "mismipplus_standin.cfg"),
+                         MISMIPPLUS)
+    out_dir = os.path.join(workdir, "mismipplus_out")
+    gm = {"calls": 0, "its": 0, "first_calls": None, "first_its": None}
+    last = {}
+    gmres_inner = ssadiva.gmres
+
+    def gmres_counted(A, b, x0=None, M=None, **kw):
+        res = gmres_inner(A, b, x0=x0, M=M, **kw)
+        gm["calls"] += 1
+        gm["its"] += res.n_iter
+        last.update(A=A, b=b, x0=x0, x=res.x, kw=kw)
+        return res
+    run_to_inner = ModelRegion.run_to
+
+    def run_to_marked(self, *a, **kw):
+        # the GMRES work before the first run_to is the initial solve
+        if gm["first_its"] is None:
+            gm["first_its"], gm["first_calls"] = gm["its"], gm["calls"]
+        return run_to_inner(self, *a, **kw)
+    ssadiva.gmres = gmres_counted
+    ModelRegion.run_to = run_to_marked
+    get_tracker().reset()         # earlier phases' routines
+    try:
+        cuda_spmv.launches = 0
+        cuda_spmv.diva_launches = 0
+        cuda_heat.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            regions = program.main([cfg, "--output-dir", out_dir])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        counts = dict(stack_spmv_launches=cuda_spmv.launches,
+                      diva_apply_launches=cuda_spmv.diva_launches,
+                      heat_columns_launches=cuda_heat.launches)
+    finally:
+        ssadiva.gmres = gmres_inner
+        ModelRegion.run_to = run_to_inner
+    region = regions["ANT"]
+    state = region.state
+    with open(os.path.join(out_dir, "resource_tracking.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    run_s = sum(r["routines"].get("run_model_region", {}).get("tcomp", 0.0)
+                for r in recs)
+    init_s = recs[0]["routines"]["initialise_model_region"]["tcomp"]
+    n_axb, n_visc = state.n_Axb_its, state.n_visc_its
+    A = last["A"]
+    front_rows = int(A.front[0].sum()) if A.front is not None else 0
+    x_GL = program.mismipplus_x_GL(region.C, region)
+    volume = float((state.Hi.double() * region.md.A.double()).sum())
+    years = region.time - MISMIPPLUS["start_time_of_run"]
+    out = dict(
+        nV=region.mesh.nV, nTri=region.mesh.nTri,
+        precision=region.C.tpu_precision, t_model_yr=region.time,
+        steps=region.n_dt_ice, wall_s=wall_s, initialise_s=init_s,
+        run_s=run_s, sim_yr_per_hr=years / run_s * 3600.0,
+        ms_per_krylov_it=run_s * 1e3 / max(n_axb, 1),
+        n_visc_its=n_visc, n_Axb_its=n_axb, dt_ice=state.dt_ice,
+        gmres_calls=gm["calls"], gmres_its=gm["its"],
+        initial_gmres_its=gm["first_its"],
+        initial_gmres_calls=gm["first_calls"],
+        x_GL_km=None if x_GL is None else x_GL / 1e3,
+        ice_volume_m3=volume, front_rows=front_rows,
+        off_rows=int(A.front[1].sum()) if A.front is not None else 0,
+        glen_A_scale=float(region.md.x("glen_A_scale")),
+        scalars=region.scalars_history[-1], coupling_records=len(recs),
+        **counts)
+    say("mismipplus", **out)
+    check_state(state, "cuda")
+    assert region.md.device.type == "cuda" and front_rows > 0
+    assert region.n_dt_ice >= 3 and volume > 0.0 and n_axb > 0
+    assert counts["diva_apply_launches"] == gm["its"] + gm["calls"] > 0, \
+        "the MISMIP+ path did not go through diva_apply"
+    assert counts["stack_spmv_launches"] > 16 * gm["calls"], \
+        "the MISMIP+ path did not go through stack_spmv"
+    assert counts["heat_columns_launches"] == 0
+    for name in (cfg, os.path.join(out_dir, "run_manifest.json")):
+        assert os.path.exists(name), name
+    assert len(recs) == 4
+    pins = (MP_INIT_GMRES_ITS, MP_AXB_ITS, MP_ICE_VOLUME_M3)
+    assert (out["initial_gmres_its"], n_axb) == pins[:2] \
+        and abs(volume - pins[2]) <= 1e-6 * pins[2], \
+        (f"the f32 MISMIP+ trajectory moved: {out['initial_gmres_its']} "
+         f"initial GMRES iterations, {n_axb} Krylov iterations, ice "
+         f"volume {volume:.6e} m^3 (expected {pins}): the rounding of "
+         "the operator changed")
+    return region, last, out
+
+
+def precond_solves(region, last):
+    """One stress-balance linear solve on the MISMIP+ phase's last system
+    with each preconditioner, in f64 on the card (the operator's kernel in
+    f64, its tables, fields, front and rhs cast from the run's f32), built
+    as the program builds it (ssadiva.make_preconditioner), by GMRES at the
+    program's restart (tpu_stress_balance_krylov_restart) and at
+    MP_PRECOND_RESTART. At the program's restart exactly the
+    preconditioners in MP_CONVERGE_AT_RESTART must converge; at
+    MP_PRECOND_RESTART each of MP_PRECONDS. A converged solve must be
+    finite, below GMRES's iteration cap, with the true residual,
+    recomputed with the plain operator in f64, within the stopping rule
+    (||M (b - A x)|| <= max(rtol ||M b||, abstol))."""
+    from ufemism2_tpu_torch.core.ice import ssadiva
+    from ufemism2_tpu_torch.ops import cuda_spmv, krylov
+    C, md = region.C, region.md
+    A32 = last["A"]
+    d = torch.float64
+    stack = cuda_spmv.StackOperator(A32.stack.cols, A32.stack.vals.to(d))
+    fields = tuple(f.to(d) for f in A32.fields)
+    front = (A32.front[0], A32.front[1], A32.front[2].to(d),
+             A32.front[3].to(d))
+    A = cuda_spmv.DivaOperator(stack, A32.rows, *fields, front=front)
+    b = tuple(t.to(d) for t in last["b"])
+    x0 = tuple(t.to(d) for t in last["x0"])
+    ssadiva.register_bjdense_static(md._host_mesh, md)
+    ssadiva.register_two_level_static(md._host_mesh, md)
+    rtol, abstol = C.stress_balance_PETSc_rtol, C.stress_balance_PETSc_abstol
+    degree = C.tpu_stress_balance_precond_degree
+    program_restart = int(C.tpu_stress_balance_krylov_restart)
+    out = []
+    for restart in (program_restart, MP_PRECOND_RESTART):
+        for kind in ("block_jacobi",) + MP_PRECONDS:
+            torch.cuda.synchronize()
+            n0 = cuda_spmv.diva_launches
+            t0 = time.perf_counter()
+            Mp = ssadiva.make_preconditioner(kind, md, A, fields, front,
+                                             degree, b)
+            res = krylov.gmres(A, b, x0=x0, M=Mp, rtol=rtol, abstol=abstol,
+                               restart=restart)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = cuda_spmv.diva_launches - n0
+            xu, xv = res.x
+            r = tuple(bi - ai for bi, ai in zip(
+                b, cuda_spmv.diva_apply_plain(
+                    (stack.cols, stack.vals), A.rows, *fields, xu, xv,
+                    front=front)))
+            mnorm = lambda t: float(torch.sqrt(sum((c ** 2).sum()
+                                                   for c in Mp(t))))
+            norm = lambda t: float(torch.sqrt(sum((c ** 2).sum()
+                                                  for c in t)))
+            res_M, b_M = mnorm(r), mnorm(b)
+            row = dict(preconditioner=kind, degree=degree
+                       if kind in ("chebyshev", "neumann") else None,
+                       restart=restart, program_restart=program_restart,
+                       gmres_its=res.n_iter, converged=res.converged,
+                       wall_s=wall_s,
+                       ms_per_it=wall_s * 1e3 / max(res.n_iter, 1),
+                       diva_apply_launches=launches,
+                       true_rel_residual_M=res_M / b_M,
+                       true_rel_residual=norm(r) / norm(b),
+                       stopping_tol_M=max(rtol * b_M, abstol) / b_M,
+                       finite=bool(torch.isfinite(xu).all()
+                                   and torch.isfinite(xv).all()))
+            say("precond_solve", **row)
+            out.append(row)
+            assert launches >= res.n_iter, row
+            if res.converged:
+                assert row["finite"] \
+                    and res.n_iter < krylov.MAXIT_DEFAULT, row
+                assert res_M <= 1.01 * max(rtol * b_M, abstol), row
+    converged = lambda rs: tuple(r["preconditioner"] for r in out
+                                 if r["restart"] == rs and r["converged"])
+    assert converged(program_restart) == MP_CONVERGE_AT_RESTART, \
+        (f"at the program's restart of {program_restart} "
+         f"{converged(program_restart)} converged, expected "
+         f"{MP_CONVERGE_AT_RESTART}")
+    assert set(MP_PRECONDS) <= set(converged(MP_PRECOND_RESTART)), out
+    return out
+
+
 def check_state(state, device_type):
     """Every tensor of the state finite and on the device."""
     import dataclasses
@@ -938,6 +1334,15 @@ def main():
                       ("float32_bf16x", torch.float32, True),
                       ("float32", torch.float32, False),
                       ("float64", torch.float64, False))]
+    # the operator with an ocean-pressure front carved at x = 400 km, random
+    # operands: every row bit-equal to the plain version
+    front8 = carved_front(mesh)
+    rng_f = np.random.default_rng(5)
+    for tag, dtype, rnd in (("float32_bf16x", torch.float32, True),
+                            ("float32", torch.float32, False),
+                            ("float64", torch.float64, False)):
+        diva_cases.append(diva_case(f"diva_apply_front_{tag}", mesh, m2,
+                                    dtype, rnd, rng_f, front=front8))
     # the calls the main path makes: the fused operator once per Krylov
     # iteration, and of the single-operator applies the largest
     hot_diva = diva_cases[0]
@@ -982,6 +1387,8 @@ def main():
     mesh_s_small = build_mesh_from_config(Config(**SMALL), "ANT")
     small_phase("small", Config(**SMALL), mesh_s_small)
     small_phase("small_thermo", Config(**SMALL_THERMO), mesh_s_small)
+    with tempfile.TemporaryDirectory() as workdir:
+        small_mismipplus_phase(workdir)
 
     # -- 6. main path at full width ----------------------------------------
     region, state, main = drive_full(C, mesh, "")
@@ -1005,11 +1412,22 @@ def main():
     _, halfar_heat = halfar_phase()
     heat_cases += [hot_heat, halfar_heat]
 
+    # -- 10. MISMIP+ through the program's entry point, 11. preconditioners
+    with tempfile.TemporaryDirectory() as workdir:
+        mp_region, mp_last, mp = mismipplus_phase(workdir)
+    mp_A = mp_last["A"]
+    diva_cases.append(diva_check("diva_apply_mismipplus_last_apply", mp_A,
+                                 torch.cat(mp_last["x"])))
+    mp_precond = precond_solves(mp_region, mp_last)
+
     kernels = [{
         "name": "stack_spmv", "route": "cuda",
         "source": "ufemism2_tpu_torch/csrc/stack_spmv.cu",
         "replaces": "ufemism2_tpu/ops/pallas_spmv.py:57",
         "launches": main["stack_spmv_launches"],
+        "launches_by_path": {"main_path": main["stack_spmv_launches"],
+                             "thermo_path": th["stack_spmv_launches"],
+                             "mismipplus": mp["stack_spmv_launches"]},
         "max_abs_err": hot["max_abs_err"], "ms": hot["ms"],
         "device_ms": hot["device_ms"],
         "plain_ms": hot["plain_ms"], "bound_ms": hot["bound_ms"],
@@ -1021,6 +1439,9 @@ def main():
         "replaces": "ufemism2_tpu/ops/pallas_spmv.py:57",
         "fuses": "ufemism2_tpu/core/ice/ssadiva.py:208",
         "launches": main["diva_apply_launches"],
+        "launches_by_path": {"main_path": main["diva_apply_launches"],
+                             "thermo_path": th["diva_apply_launches"],
+                             "mismipplus": mp["diva_apply_launches"]},
         "max_abs_err": hot_diva["max_abs_err"], "ms": hot_diva["ms"],
         "device_ms": hot_diva["device_ms"],
         "plain_ms": hot_diva["plain_ms"], "bound_ms": hot_diva["bound_ms"],

@@ -154,3 +154,107 @@ def test_stopping_rule_cap_and_zero_rhs():
                      abstol=0.0, maxiter=7)
     assert rt.n_iter == int(rj.n_iter) == 7
     assert tk.MAXIT_DEFAULT == jk.MAXIT_DEFAULT == 2000
+
+
+# cg and the polynomial preconditioners: same iteration counts, solutions
+# within 1e-12 of max|x| (f64, summation order apart).
+POLY_TOL = 1e-12
+
+
+@pytest.mark.parametrize("precond", [False, True])
+def test_cg_matches_jax(precond):
+    A, b = _system("spd", seed=21)
+    Mj, Mt, dinv = _ops(A)
+    dj, dt_ = jnp.asarray(dinv), torch.from_numpy(dinv)
+    kw = dict(rtol=1e-10, abstol=1e-14)
+    rj = jk.cg(lambda x: Mj @ x, jnp.asarray(b),
+               M=(lambda r: dj * r) if precond else None, **kw)
+    rt = tk.cg(lambda x: Mt @ x, torch.from_numpy(b),
+               M=(lambda r: dt_ * r) if precond else None, **kw)
+    assert rt.converged and bool(rj.converged)
+    assert rt.n_iter == int(rj.n_iter) > 3
+    xj = np.asarray(rj.x)
+    assert np.abs(rt.x.numpy() - xj).max() <= POLY_TOL * np.abs(xj).max()
+    assert np.abs(A @ rt.x.numpy() - b).max() < 1e-8
+    assert abs(rt.res_norm - float(rj.res_norm)) <= 1e-6 * rt.res_norm
+
+
+def test_cg_on_tuple_and_cap():
+    """(u, v) tuples with a warm start; the cap and a zero rhs as in the
+    JAX solver."""
+    A, b = _system("spd", n=300, seed=23)
+    n = 150
+    Mj, Mt, _ = _ops(A)
+    x0 = np.random.default_rng(24).standard_normal(2 * n)
+    rj = jk.cg(lambda uv: (lambda y: (y[:n], y[n:]))(
+        Mj @ jnp.concatenate(uv)), (jnp.asarray(b[:n]), jnp.asarray(b[n:])),
+        x0=(jnp.asarray(x0[:n]), jnp.asarray(x0[n:])), rtol=1e-10,
+        abstol=1e-14)
+    rt = tk.cg(lambda uv: (lambda y: (y[:n], y[n:]))(Mt @ torch.cat(uv)),
+               (torch.from_numpy(b[:n]), torch.from_numpy(b[n:])),
+               x0=(torch.from_numpy(x0[:n]), torch.from_numpy(x0[n:])),
+               rtol=1e-10, abstol=1e-14)
+    assert isinstance(rt.x, tuple) and rt.n_iter == int(rj.n_iter) > 3
+    for a, c in zip(rt.x, rj.x):
+        c = np.asarray(c)
+        assert np.abs(a.numpy() - c).max() <= POLY_TOL * np.abs(c).max()
+    rj = jk.cg(lambda x: Mj @ x, jnp.asarray(b), rtol=1e-30, abstol=0.0,
+               maxiter=9)
+    rt = tk.cg(lambda x: Mt @ x, torch.from_numpy(b), rtol=1e-30,
+               abstol=0.0, maxiter=9)
+    assert rt.n_iter == int(rj.n_iter) == 9 and not rt.converged
+    rt = tk.cg(lambda x: Mt @ x, torch.zeros(2 * n, dtype=torch.float64))
+    assert rt.n_iter == 0 and rt.converged
+
+
+@pytest.mark.parametrize("n_its", [1, 10])
+def test_estimate_lambda_max_matches_jax(n_its):
+    A, b = _system("nonsym", seed=31)
+    Mj, Mt, dinv = _ops(A)
+    dj, dt_ = jnp.asarray(dinv), torch.from_numpy(dinv)
+    lj = jk.estimate_lambda_max(lambda x: dj * (Mj @ x), jnp.asarray(b),
+                                n_its=n_its)
+    lt = tk.estimate_lambda_max(lambda x: dt_ * (Mt @ x),
+                                torch.from_numpy(b), n_its=n_its)
+    assert lt.ndim == 0 and lt.dtype == torch.float64
+    assert abs(float(lt) - float(lj)) <= 1e-13 * float(lj)
+    # a diagonal operator: the power iteration finds its largest entry
+    d = torch.cat([torch.linspace(1.0, 3.0, 49, dtype=torch.float64),
+                   torch.tensor([5.0], dtype=torch.float64)])
+    lam = tk.estimate_lambda_max(lambda x: d * x, torch.ones(50,
+                                 dtype=torch.float64), n_its=60)
+    assert abs(float(lam) - 5.0) < 1e-6
+
+
+@pytest.mark.parametrize("degree", [1, 3, 5])
+@pytest.mark.parametrize("kind", ["chebyshev", "neumann"])
+def test_polynomial_preconditioned_gmres_matches_jax(kind, degree):
+    """GMRES with a Chebyshev (interval from estimate_lambda_max) or
+    Neumann polynomial over the Jacobi base preconditioner, on an SPD
+    system (a real positive spectrum under Jacobi scaling, which the
+    Chebyshev interval assumes)."""
+    A, b = _system("spd", seed=41)
+    Mj, Mt, dinv = _ops(A)
+    dj, dt_ = jnp.asarray(dinv), torch.from_numpy(dinv)
+    Aj, At = (lambda x: Mj @ x), (lambda x: Mt @ x)
+    Bj, Bt = (lambda r: dj * r), (lambda r: dt_ * r)
+    if kind == "chebyshev":
+        lj = jk.estimate_lambda_max(lambda w: Bj(Aj(w)), jnp.asarray(b))
+        lt = tk.estimate_lambda_max(lambda w: Bt(At(w)),
+                                    torch.from_numpy(b))
+        Pj = jk.make_chebyshev_preconditioner(Aj, Bj, degree, lj)
+        Pt = tk.make_chebyshev_preconditioner(At, Bt, degree, lt)
+    else:
+        Pj = jk.make_neumann_preconditioner(Aj, Bj, degree)
+        Pt = tk.make_neumann_preconditioner(At, Bt, degree)
+    # one application, then the solve
+    zj = np.asarray(Pj(jnp.asarray(b)))
+    zt = Pt(torch.from_numpy(b)).numpy()
+    assert np.abs(zt - zj).max() <= POLY_TOL * np.abs(zj).max()
+    kw = dict(rtol=1e-10, abstol=1e-14, restart=30)
+    rj = jk.gmres(Aj, jnp.asarray(b), M=Pj, **kw)
+    rt = tk.gmres(At, torch.from_numpy(b), M=Pt, **kw)
+    assert rt.converged and bool(rj.converged)
+    assert rt.n_iter == int(rj.n_iter) > 0
+    xj = np.asarray(rj.x)
+    assert np.abs(rt.x.numpy() - xj).max() <= POLY_TOL * np.abs(xj).max()

@@ -131,7 +131,7 @@ def test_default_device_is_the_card(env):
     (dict(choice_SMB_model_ANT="IMAU-ITM"), "choice_SMB_model"),
     (dict(choice_BMB_model_ANT="laddie_py"), "choice_BMB_model"),
     (dict(choice_GIA_model="ELRA"), "choice_GIA_model"),
-    (dict(choice_sliding_law="Weertman"), "Weertman"),
+    (dict(choice_sealevel_model="prescribed"), "choice_sealevel_model"),
     (dict(tpu_n_devices=4), "tpu_n_devices"),
 ])
 def test_unported_choices_raise_by_name(env, over, word):

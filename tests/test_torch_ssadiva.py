@@ -305,17 +305,39 @@ def test_ssa_solve_and_no_sliding(env, cold):
     assert float(on[0].abs().max()) == float(on[2].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("over, word", [
+@pytest.mark.parametrize("over, exc, word", [
     (dict(choice_stress_balance_approximation="hybrid DIVA/BPA"),
-     "hybrid DIVA/BPA"),
-    (dict(tpu_stress_balance_precond="chebyshev"), "chebyshev"),
-    (dict(choice_stress_balance_approximation="BPA"), "BPA"),
-    (dict(BC_ice_front="ocean_pressure"), "ocean_pressure"),
-    (dict(tpu_stress_balance_precond="block_dense"), "block_dense"),
-    (dict(tpu_stress_balance_precond="two_level"), "two_level"),
+     NotImplementedError, "hybrid DIVA/BPA"),
+    (dict(tpu_stress_balance_precond="ilu"), ValueError,
+     "tpu_stress_balance_precond"),
+    (dict(choice_stress_balance_approximation="BPA"), NotImplementedError,
+     "BPA"),
+    (dict(BC_u_north="no_such_bc"), ValueError, "BC_u_north"),
 ])
-def test_unported_choices_raise_by_name(env, over, word):
+def test_unported_choices_raise_by_name(env, over, exc, word):
+    """What is not ported raises NotImplementedError, what does not exist
+    ValueError, each naming the choice (the preconditioners and the
+    ocean-pressure front are ported now: test_ported_choices_build)."""
     _, Ct = configs(**over)
     mdt = tmd.build_mesh_data(env.mesh_t, dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match=word):
+    with pytest.raises(exc, match=word):
         t_make_solve(Ct, mdt)
+
+
+@pytest.mark.parametrize("over", [
+    dict(tpu_stress_balance_precond="chebyshev"),
+    dict(tpu_stress_balance_precond="neumann"),
+    dict(tpu_stress_balance_precond="block_dense"),
+    dict(tpu_stress_balance_precond="two_level"),
+    dict(BC_ice_front="ocean_pressure"),
+], ids=["chebyshev", "neumann", "block_dense", "two_level",
+        "ocean_pressure"])
+def test_ported_choices_build(env, over):
+    """The choices that raised until the MISMIP+ slice build a solver, and
+    the preconditioners their tables."""
+    _, Ct = configs(**over)
+    mdt = tmd.build_mesh_data(env.mesh_t, dtype=torch.float64, device="cpu")
+    assert callable(t_make_solve(Ct, mdt))
+    kind = over.get("tpu_stress_balance_precond")
+    assert ("bjd_vals" in mdt.extras) == (kind == "block_dense")
+    assert ("c2_bcol" in mdt.extras) == (kind == "two_level")

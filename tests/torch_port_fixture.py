@@ -42,6 +42,53 @@ FIXTURE = dict(
 )
 
 
+# A coarse MISMIP+ configuration (tests/test_ocean_pressure_bc.py's, with
+# the domain reaching past the MISMIP+ ice mask at x = 640 km, so that the
+# ocean-pressure calving front acts): DIVA, Weertman sliding, about 70
+# vertices at 40 km.
+MISMIPPLUS = dict(
+    choice_refgeo_init_ANT="idealised",
+    choice_refgeo_init_idealised="MISMIP+",
+    choice_refgeo_PD_ANT="idealised",
+    choice_refgeo_PD_idealised="MISMIP+",
+    refgeo_idealised_MISMIPplus_Hi_init=100.0,
+    dx_refgeo_init_idealised=10e3,
+    choice_mask_noice="MISMIP+",
+    choice_stress_balance_approximation="DIVA",
+    choice_sliding_law="Weertman",
+    slid_Weertman_beta_sq_uniform=1e4,
+    BC_ice_front="ocean_pressure",
+    choice_ice_rheology_Glen="uniform", uniform_Glens_flow_factor=2.0e-17,
+    choice_thermo_model="none",
+    choice_initial_ice_temperature_ANT="uniform",
+    choice_BMB_model_ANT="uniform", uniform_BMB=0.0,
+    uniform_SMB=0.3, choice_SMB_model_ANT="uniform",
+    xmin_ANT=0.0, xmax_ANT=800e3, ymin_ANT=-40e3, ymax_ANT=40e3,
+    maximum_resolution_uniform=40e3,
+    maximum_resolution_grounded_ice=40e3,
+    maximum_resolution_grounding_line=40e3,
+    start_time_of_run=0.0, end_time_of_run=2.0,
+    nit_Lloyds_algorithm=2, refgeo_Hi_min=2.0,
+    allow_mesh_updates=False, visc_it_nit=3, pc_nit_max=2,
+)
+
+
+def mismipplus_configs(**over):
+    """(JAX-package Config, port Config) of the MISMIP+ configuration."""
+    from ufemism2_tpu.config import Config as CJ
+    from ufemism2_tpu_torch.config import Config as CT
+    kw = dict(MISMIPPLUS, **over)
+    return CJ(**kw), CT(**kw)
+
+
+def build_meshes_for(Cj):
+    """(JAX-package mesh, port mesh) of a JAX-package Config."""
+    from ufemism2_tpu.mesh import build_mesh_from_config
+    from ufemism2_tpu_torch.convert import mesh_from_numpy
+    mesh_j = build_mesh_from_config(Cj, "ANT")
+    return mesh_j, mesh_from_numpy(mesh_to_numpy(mesh_j))
+
+
 def configs(**over):
     """(JAX-package Config, port Config) of the fixture with overrides."""
     from ufemism2_tpu.config import Config as CJ

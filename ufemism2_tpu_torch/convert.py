@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .core.mesh_data import EField, EIndex
 from .core.ice.state import IceState, PCState
 from .mesh.mesh_types import Mesh
 from .ops import resolve_device
@@ -73,3 +74,23 @@ def ell_from_scipy(mats, device, dtype) -> EllStack:
     """An EllStack over the union pattern of a list of scipy matrices of
     one shape."""
     return ell_stack_from_csr(list(mats), dtype=dtype, device=device)
+
+
+def extra_tables_from_numpy(md, tables: dict):
+    """Register static tables into md.extras from plain numpy: `tables`
+    maps a name to (array, row) for a field (an EField: a per-entity
+    table, or a 0-d one in row 'scalar' such as the MISMIP+ flow-factor
+    scale glen_A_scale) or to (array, row, col) for an index table (an
+    EIndex). Floating arrays take md's type, integer arrays become int64
+    indices, booleans stay booleans; all go to md's device."""
+    for name, spec in tables.items():
+        a = np.asarray(spec[0])
+        if a.dtype == np.bool_:
+            t = torch.tensor(a, device=md.device)
+        elif np.issubdtype(a.dtype, np.integer):
+            t = torch.tensor(a, dtype=torch.int64, device=md.device)
+        else:
+            t = torch.tensor(a, dtype=md.A.dtype, device=md.device)
+        md.extras[name] = (EIndex(t, spec[1], spec[2]) if len(spec) == 3
+                           else EField(t, spec[1]))
+    return md

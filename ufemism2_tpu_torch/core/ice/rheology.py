@@ -30,7 +30,13 @@ def calc_ice_rheology_glen(C, md, Hi, Hs, Ti, mask_grounded, mask_floating,
     """A_flow [nV, nz] in Pa^-n yr^-1."""
     choice = C.choice_ice_rheology_Glen
     if choice == "uniform":
-        A = torch.zeros_like(Ti) + C.uniform_Glens_flow_factor
+        A0 = C.uniform_Glens_flow_factor
+        if md is not None and md.extras and "glen_A_scale" in md.extras:
+            # dynamic multiplier: the MISMIP+ flow-factor tuning adjusts
+            # it between coupling intervals without rebuilding the step
+            # (inversion_utilities.f90 MISMIPplus_adapt_flow_factor)
+            A0 = A0 * md.x("glen_A_scale").to(Ti.dtype)
+        A = torch.zeros_like(Ti) + A0
     elif choice == "Huybrechts1992":
         A = torch.where(Ti < _T_SWITCH,
                         _A_LOW * torch.exp(-_Q_LOW / (_R_GAS * Ti)),

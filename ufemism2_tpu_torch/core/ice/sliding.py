@@ -1,30 +1,22 @@
 """Sliding laws: basal friction coefficient beta from basal velocity.
 
 Vectorised re-derivation of src/UFEMISM/ice_dynamics/conservation_of_momentum/
-sliding_laws.f90. Ported so far: no_sliding and Zoet-Iverson, with
-grounded-fraction scaling of bed roughness and the Bueler & Brown (2009)
-velocity regularisation. Weertman, Coulomb, Budd, Tsai2015, Schoof2005 and
-the idealised laws raise NotImplementedError.
+sliding_laws.f90: Weertman / Coulomb / Budd / Tsai2015 / Schoof2005 /
+Zoet-Iverson / idealised, with grounded-fraction scaling of bed roughness
+and the Bueler & Brown (2009) velocity regularisation.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-from ..mesh_data import MeshData
+from ..mesh_data import MeshData, EField
 from ...utils.constants import pi
+from ..analytical import schoof_icestream
 from .hydrology import run_basal_hydrology
-
-_PORTED_LAWS = ("no_sliding", "Zoet-Iverson")
-
-
-def _check_law(choice):
-    if choice not in _PORTED_LAWS:
-        raise NotImplementedError(
-            f"choice_sliding_law '{choice}' is not ported yet "
-            f"(ported: {', '.join(_PORTED_LAWS)})")
 
 
 def _uabs(C, u_a, v_a):
@@ -68,34 +60,117 @@ def calc_basal_friction_coefficient(C, md: MeshData, bed_roughness,
     tensors on the a-grid.
     """
     choice = C.choice_sliding_law
-    _check_law(choice)
     uabs = _uabs(C, u_a, v_a)
 
     if choice == "no_sliding":
         beta = torch.zeros_like(u_a)
         return torch.clamp(beta, max=C.slid_beta_max)
 
+    if choice == "idealised":
+        # the static analytic field (tau_y for SSA_icestream, beta
+        # otherwise), registered by register_sliding_static
+        if md.extras and "slid_ideal" in md.extras:
+            arr = md.x("slid_ideal").to(uabs.dtype)
+            if C.choice_idealised_sliding_law == "SSA_icestream":
+                beta = arr / uabs
+            else:
+                beta = arr * torch.ones_like(uabs)
+            return torch.clamp(beta, max=C.slid_beta_max)
+        return torch.clamp(_idealised_sliding(C, md, uabs),
+                           max=C.slid_beta_max).to(uabs.dtype)
+
     _, _, N_eff = run_basal_hydrology(
         C, Hi_eff, Hb, SL,
         mask_grounded_ice=masks.get("mask_grounded_ice"))
 
-    rough = apply_grounded_fractions_to_bed_roughness(
-        C, masks, Hi, Hs_slope, fraction_gr,
-        bed_roughness["till_friction_angle"])
-    # NOTE the reference's till yield stress is LINEAR in the till
-    # friction angle: tau_y = N * tan(pi/180) * phi_deg, i.e. the
-    # small-angle form tan(1 deg)*phi, NOT tan(phi*pi/180) - see
-    # sliding_laws.f90:379 'tan(pi / 180._dp) * bed_roughness_applied'.
-    tau_y = N_eff * math.tan(pi / 180.0) * rough
-    tau_y = _extend_till_yield_to_neighbours(md, masks, tau_y)
-    # Zoet-Iverson (2020) Eq. 3
-    p = C.slid_ZI_p
-    beta = (tau_y * uabs ** (1.0 / p - 1.0)
-            * (uabs + C.slid_ZI_ut) ** (-1.0 / p))
+    if choice == "Weertman":
+        rough = apply_grounded_fractions_to_bed_roughness(
+            C, masks, Hi, Hs_slope, fraction_gr, bed_roughness["beta_sq"])
+        beta = rough * uabs ** (1.0 / C.slid_Weertman_m - 1.0)
+
+    elif choice in ("Coulomb", "Budd", "Zoet-Iverson"):
+        rough = apply_grounded_fractions_to_bed_roughness(
+            C, masks, Hi, Hs_slope, fraction_gr,
+            bed_roughness["till_friction_angle"])
+        # NOTE the reference's till yield stress is LINEAR in the till
+        # friction angle: tau_y = N * tan(pi/180) * phi_deg, i.e. the
+        # small-angle form tan(1 deg)*phi, NOT tan(phi*pi/180) - see
+        # sliding_laws.f90:158 (Coulomb), :214 (Budd), :379
+        # (Zoet-Iverson), all 'tan(pi / 180._dp) * bed_roughness_applied'.
+        tau_y = N_eff * math.tan(pi / 180.0) * rough
+        tau_y = _extend_till_yield_to_neighbours(md, masks, tau_y)
+        if choice == "Coulomb":
+            beta = tau_y / uabs
+        elif choice == "Budd":
+            beta = (tau_y * uabs ** (C.slid_Budd_q_plastic - 1.0)
+                    / (C.slid_Budd_u_threshold ** C.slid_Budd_q_plastic))
+        else:  # Zoet-Iverson (2020) Eq. 3
+            p = C.slid_ZI_p
+            beta = (tau_y * uabs ** (1.0 / p - 1.0)
+                    * (uabs + C.slid_ZI_ut) ** (-1.0 / p))
+
+    elif choice == "Tsai2015":
+        rough = apply_grounded_fractions_to_bed_roughness(
+            C, masks, Hi, Hs_slope, fraction_gr, bed_roughness["beta_sq"])
+        # Asay-Davis et al. (2016), Eq. 7
+        beta = torch.minimum(bed_roughness["alpha_sq"] * N_eff,
+                             rough * uabs ** (1.0 / C.slid_Weertman_m)) / uabs
+
+    elif choice == "Schoof2005":
+        rough = apply_grounded_fractions_to_bed_roughness(
+            C, masks, Hi, Hs_slope, fraction_gr, bed_roughness["beta_sq"])
+        aN = bed_roughness["alpha_sq"] * N_eff
+        m = C.slid_Weertman_m
+        # Asay-Davis et al. (2016), Eq. 11
+        beta = ((rough * uabs ** (1.0 / m) * aN)
+                / ((rough ** m * uabs + aN ** m) ** (1.0 / m))) / uabs
+
+    else:
+        raise ValueError(f"unknown choice_sliding_law '{choice}'")
+
     return torch.clamp(beta, max=C.slid_beta_max)
 
 
+def _idealised_field(C, V):
+    """The idealised law's static field on vertices V (host numpy, f64):
+    the till yield stress for SSA_icestream, beta otherwise."""
+    choice = C.choice_idealised_sliding_law
+    if choice == "SSA_icestream":
+        _, field = schoof_icestream(
+            C.uniform_Glens_flow_factor, C.Glens_flow_law_exponent,
+            C.refgeo_idealised_SSA_icestream_Hi,
+            C.refgeo_idealised_SSA_icestream_dhdx,
+            C.refgeo_idealised_SSA_icestream_L,
+            C.refgeo_idealised_SSA_icestream_m, V[:, 1])
+        return field
+    if choice == "ISMIP-HOM_C":
+        L = C.refgeo_idealised_ISMIP_HOM_L
+        return 1000.0 + 1000.0 * np.sin(2 * np.pi * V[:, 0] / L) \
+            * np.sin(2 * np.pi * V[:, 1] / L)
+    if choice == "ISMIP-HOM_D":
+        L = C.refgeo_idealised_ISMIP_HOM_L
+        return 1000.0 + 1000.0 * np.sin(2 * np.pi * V[:, 0] / L)
+    if choice == "ISMIP-HOM_F":
+        return np.full(len(V), (C.uniform_Glens_flow_factor * 1000.0) ** -1)
+    raise ValueError(f"unknown choice_idealised_sliding_law '{choice}'")
+
+
 def register_sliding_static(C, mesh, md):
-    """Register the sliding law's static fields into md.extras. The ported
-    laws need none; an unported law is refused here, at set-up."""
-    _check_law(C.choice_sliding_law)
+    """Register the idealised-sliding static field into md.extras (host
+    side, once per mesh)."""
+    if C.choice_sliding_law != "idealised" or "slid_ideal" in md.extras:
+        return
+    md.extras["slid_ideal"] = EField(torch.as_tensor(
+        _idealised_field(C, mesh.V), dtype=md.A.dtype, device=md.device),
+        "V")
+
+
+def _idealised_sliding(C, md: MeshData, uabs):
+    """Idealised sliding laws from the analytic field on md.V, for a
+    MeshData without the registered table."""
+    V = md.V.double().cpu().numpy()
+    field = torch.as_tensor(_idealised_field(C, V), dtype=torch.float64,
+                            device=uabs.device)
+    if C.choice_idealised_sliding_law == "SSA_icestream":
+        return field / uabs
+    return field * torch.ones_like(uabs)

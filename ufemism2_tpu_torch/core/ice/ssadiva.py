@@ -13,14 +13,14 @@ momentum operator
 is applied matrix-free: one kernel launch (ops/cuda_spmv.py, `diva_apply`)
 forms the five M2_* derivatives of u and v, scales them by the
 per-triangle fields (N, dN/dx, dN/dy, beta_eff) and writes the boundary
-rows; the system is solved by restarted GMRES with a 2x2 block-Jacobi
-preconditioner. The viscosity iteration
+rows (with BC_ice_front = 'ocean_pressure' also the calving-front rows and
+the identity rows off the ice); the system is solved by restarted GMRES
+with a 2x2 block-Jacobi preconditioner, or with Chebyshev or Neumann
+polynomial acceleration of it, a dense block-Jacobi over 64-triangle
+blocks, or the block-Jacobi plus a Galerkin coarse correction
+(tpu_stress_balance_precond). The viscosity iteration
 (DIVA_solver_infinite_slab.f90:52-231) including the adaptive relaxation
 rescue ladder is a host loop over device work.
-
-Not ported yet (each raises NotImplementedError where it is chosen): the
-ocean-pressure calving-front rows and the block_dense, two_level,
-Chebyshev and Neumann preconditioners.
 """
 
 from __future__ import annotations
@@ -33,10 +33,12 @@ import torch
 
 from ..mesh_data import MeshData, EField, EIndex
 from ...parallel import comm
-from ...utils.constants import ice_density, grav
+from ...utils.constants import ice_density, grav, seawater_density
 from ...mesh.zeta import integrate_from_base_up, vertical_average
 from ...ops.cuda_spmv import DivaOperator, DivaRows
-from ...ops.krylov import gmres
+from ...ops.krylov import (gmres, estimate_lambda_max,
+                           make_chebyshev_preconditioner,
+                           make_neumann_preconditioner)
 from .masks import determine_masks
 from .rheology import calc_ice_rheology_glen
 from .sia import solve_SIA
@@ -161,21 +163,63 @@ def make_bc_data(C, mesh) -> _BCData:
 # iteration below)
 # ---------------------------------------------------------------------------
 
-def make_A(md, N_b, dN_dx_b, dN_dy_b, beta_eff_b):
+class FrontData(NamedTuple):
+    """The ocean-pressure calving front of one solve (per-triangle)."""
+    is_front: torch.Tensor   # ice triangles with an ice-free neighbour
+    off: torch.Tensor        # triangles without ice: identity rows
+    n_x: torch.Tensor        # outward unit normal
+    n_y: torch.Tensor
+    tau_ox_b: torch.Tensor   # ocean back pressure, the front rows' rhs
+    tau_oy_b: torch.Tensor
+
+
+def calc_front(md, Hi, Hb, SL, Hi_b):
+    """The front of the ice mask Hi > 0.1 (DIVA_solver_ocean_pressure.f90:
+    the reference solves on a masked ice-only graph with Neumann
+    ocean-back-pressure rows at the calving front; here the same system is
+    masked rows on the full mesh). The outward normal points towards the
+    mean of the ice-free neighbours' centroids (the graph's border_nhat);
+    the back pressure is calc_ocean_back_pressure:660-670 with
+    Ho = min(max(SL - Hb, 0), rho_i/rho_sw * Hi)."""
+    ice_a = Hi > 0.1
+    ice_b = ice_a[md.Tri].any(dim=1)
+    ice_nbr = ice_b[md.TriC]
+    noice_nbr = (~ice_nbr) & md.mask_TriC
+    is_front = ice_b & noice_nbr.any(dim=1)
+    off = ~ice_b
+    gc_nbr = md.TriGC[md.TriC]                  # [nTri, 3, 2]
+    d = torch.where(noice_nbr[:, :, None],
+                    gc_nbr - md.TriGC[:, None, :], 0.0).sum(dim=1)
+    d_len = torch.sqrt((d ** 2).sum(dim=1))
+    nhat = d / torch.clamp(d_len, min=1e-30)[:, None]
+    n_x, n_y = nhat[:, 0].contiguous(), nhat[:, 1].contiguous()
+    Ho_a = torch.minimum(torch.clamp(SL - Hb, min=0.0),
+                         ice_density / seawater_density * Hi)
+    Ho_b = md.M_map_a_b @ Ho_a
+    tau_mag = (0.5 * ice_density * grav * Hi_b ** 2
+               - 0.5 * seawater_density * grav * Ho_b ** 2)
+    return FrontData(is_front, off, n_x, n_y, tau_mag * n_x, tau_mag * n_y)
+
+
+def make_A(md, N_b, dN_dx_b, dN_dy_b, beta_eff_b, front=None):
     """The matrix-free linearised SSA/DIVA momentum operator
     (solve_linearised_SSA_DIVA_infinite_slab.f90 rows): the five-operator
     derivative stack applied to (u, v), scaled by the per-triangle fields,
-    BC rows 'infinite' (neighbour mean) or identity. On the card one
-    launch of the kernel `diva_apply`, on the CPU its plain version.
-    `A((u, v))` gives (Au, Av); `A.flat` is the same on the flat vector
-    [u; v], which `gmres` takes when it is there."""
+    BC rows 'infinite' (neighbour mean) or identity; `front` =
+    (is_front, off, n_x, n_y) adds the ocean-pressure front rows
+    (solve_linearised_SSA_DIVA_ocean_pressure.f90:445-560) and identity
+    rows off the ice. On the card one launch of the kernel `diva_apply`,
+    on the CPU its plain version. `A((u, v))` gives (Au, Av); `A.flat` is
+    the same on the flat vector [u; v], which `gmres` takes when it is
+    there."""
     stack = md.M2_stack
     return DivaOperator(stack.op, md.x("ssa_diva_rows"), N_b, dN_dx_b, dN_dy_b,
                         beta_eff_b,
-                        round_x_bf16=stack.vals.dtype == torch.float32)
+                        round_x_bf16=stack.vals.dtype == torch.float32,
+                        front=None if front is None else tuple(front[:4]))
 
 
-def make_precond(md, N_b, dN_dx_b, dN_dy_b, beta_eff_b):
+def make_precond(md, N_b, dN_dx_b, dN_dy_b, beta_eff_b, front=None):
     """2x2 block-Jacobi: invert the per-triangle (u,v) diagonal block."""
     bc_free = md.x("ssa_bc_free")
     bc_inf_u = md.x("ssa_bc_inf_u")
@@ -198,6 +242,16 @@ def make_precond(md, N_b, dN_dx_b, dN_dy_b, beta_eff_b):
     avv = torch.where(bc_free, avv, torch.where(bc_inf_v, -n_nbr, one))
     auv = torch.where(bc_free, auv, 0.0)
     avu = torch.where(bc_free, avu, 0.0)
+    if front is not None:
+        is_front, off, n_x, n_y = front[:4]
+        auu_f = 4 * N_b * n_x * d_ddx + N_b * n_y * d_ddy
+        avv_f = 4 * N_b * n_y * d_ddy + N_b * n_x * d_ddx
+        auv_f = 2 * N_b * n_x * d_ddy + N_b * n_y * d_ddx
+        avu_f = 2 * N_b * n_y * d_ddx + N_b * n_x * d_ddy
+        auu = torch.where(off, 1.0, torch.where(is_front, auu_f, auu))
+        avv = torch.where(off, 1.0, torch.where(is_front, avv_f, avv))
+        auv = torch.where(off, 0.0, torch.where(is_front, auv_f, auv))
+        avu = torch.where(off, 0.0, torch.where(is_front, avu_f, avu))
     det = auu * avv - auv * avu
     det = torch.where(torch.abs(det) < 1e-300, 1e-300, det)
 
@@ -205,6 +259,315 @@ def make_precond(md, N_b, dN_dx_b, dN_dy_b, beta_eff_b):
         ru, rv = r
         return ((avv * ru - auv * rv) / det,
                 (-avu * ru + auu * rv) / det)
+    return M
+
+
+BJD_BLOCK = 64     # triangles per dense Jacobi block (128x128 (u,v) system)
+
+
+def register_bjdense_static(mesh, md: MeshData):
+    """Static tables for the dense block-Jacobi preconditioner: for each
+    contiguous block of BJD_BLOCK triangles, the in-block entries of the 5
+    shared-pattern b-grid operators plus flat scatter indices into the
+    [nB, 128, 128] dense (u,v) blocks: exact dense solves on 64-triangle
+    subdomains, batch-inverted each viscosity iteration (the strength
+    class of PETSc's bjacobi+ILU, petsc_basic.f90)."""
+    if "bjd_vals" in md.extras:
+        return
+    ops = mesh.operators
+    mats = [ops.M2_ddx_b_b.tocsr(), ops.M2_ddy_b_b.tocsr(),
+            ops.M2_d2dx2_b_b.tocsr(), ops.M2_d2dxdy_b_b.tocsr(),
+            ops.M2_d2dy2_b_b.tocsr()]
+    nTri = mats[0].shape[0]
+    B = BJD_BLOCK
+    nB = (nTri + B - 1) // B
+    U = (abs(mats[0]) + abs(mats[1]) + abs(mats[2]) + abs(mats[3])
+         + abs(mats[4])).tocoo()
+    r = U.row.astype(np.int64)
+    c = U.col.astype(np.int64)
+    sel = (r // B) == (c // B)
+    r, c = r[sel], c[sel]
+    vals5 = np.zeros((len(r), 5))
+    q = r * nTri + c
+    for k, m in enumerate(mats):
+        mc = m.tocoo()
+        key = mc.row.astype(np.int64) * nTri + mc.col.astype(np.int64)
+        order = np.argsort(key)
+        ks = key[order]
+        pos = np.minimum(np.searchsorted(ks, q), len(ks) - 1)
+        hit = ks[pos] == q
+        vals5[hit, k] = mc.data[order][pos][hit]
+    base = (r // B) * (128 * 128) + (2 * (r % B)) * 128 + 2 * (c % B)
+    rows_all = np.arange(nB * B, dtype=np.int64)
+    diag = ((rows_all // B) * (128 * 128)
+            + (2 * (rows_all % B)) * 128 + 2 * (rows_all % B))
+    dt, dev = md.A.dtype, md.device
+    i64 = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
+    md.extras.update({
+        "bjd_vals": EField(torch.as_tensor(vals5, dtype=dt, device=dev),
+                           "BJDnnz"),
+        "bjd_rows": EField(i64(r), "BJDnnz"),
+        "bjd_base": EField(i64(base), "BJDnnz"),
+        "bjd_diag": EField(i64(diag), "BJDrow"),
+        "bjd_row_valid": EField(torch.as_tensor(rows_all < nTri,
+                                                device=dev), "BJDrow"),
+    })
+
+
+def _pad(a, n, fill):
+    """a [len] padded with `fill` to [n]."""
+    out = torch.full((n,), fill, dtype=a.dtype, device=a.device)
+    out[:a.shape[0]] = a
+    return out
+
+
+def make_precond_dense(md, N_b, dN_dx_b, dN_dy_b, beta_eff_b, front=None):
+    """Dense block-Jacobi: assemble the in-block entries of the
+    linearised operator (same weights as make_A) into [nB, 128, 128]
+    (u,v) blocks, batch-invert, apply as one batched matmul. BC rows keep
+    the 2x2 scheme's diagonal approximation."""
+    bc_free = md.x("ssa_bc_free")
+    bc_inf_u = md.x("ssa_bc_inf_u")
+    bc_inf_v = md.x("ssa_bc_inf_v")
+    n_nbr = md.mask_TriC.sum(dim=1).to(N_b.dtype)
+    v5 = md.x("bjd_vals")
+    rsel = md.x("bjd_rows")
+    base = md.x("bjd_base")
+    diag = md.x("bjd_diag")
+    row_valid = md.x("bjd_row_valid")
+    nTri = N_b.shape[0]
+    B = BJD_BLOCK
+    nB = row_valid.shape[0] // B
+    nP = nB * B
+    dt = N_b.dtype
+
+    Nr = N_b[rsel]
+    dxr = dN_dx_b[rsel]
+    dyr = dN_dy_b[rsel]
+    ddx, ddy, dxx, dxy, dyy = (v5[:, k] for k in range(5))
+    e_uu = 4 * Nr * dxx + 4 * dxr * ddx + Nr * dyy + dyr * ddy
+    e_uv = 3 * Nr * dxy + 2 * dxr * ddy + dyr * ddx
+    e_vu = 3 * Nr * dxy + 2 * dyr * ddx + dxr * ddy
+    e_vv = 4 * Nr * dyy + 4 * dyr * ddy + Nr * dxx + dxr * ddx
+    if front is not None:
+        is_front, off, n_x, n_y = front[:4]
+        fr = is_front[rsel]
+        nxr, nyr = n_x[rsel], n_y[rsel]
+        e_uu = torch.where(fr, 4 * Nr * nxr * ddx + Nr * nyr * ddy, e_uu)
+        e_vv = torch.where(fr, 4 * Nr * nyr * ddy + Nr * nxr * ddx, e_vv)
+        e_uv = torch.where(fr, 2 * Nr * nxr * ddy + Nr * nyr * ddx, e_uv)
+        e_vu = torch.where(fr, 2 * Nr * nyr * ddx + Nr * nxr * ddy, e_vu)
+        ok_r = (bc_free | is_front)[rsel] & ~off[rsel]
+    else:
+        ok_r = bc_free[rsel]
+    e_uu = torch.where(ok_r, e_uu, 0.0)
+    e_uv = torch.where(ok_r, e_uv, 0.0)
+    e_vu = torch.where(ok_r, e_vu, 0.0)
+    e_vv = torch.where(ok_r, e_vv, 0.0)
+
+    blocks = torch.zeros(nB * 128 * 128, dtype=dt, device=N_b.device)
+    blocks.index_add_(0, base, e_uu)
+    blocks.index_add_(0, base + 1, e_uv)
+    blocks.index_add_(0, base + 128, e_vu)
+    blocks.index_add_(0, base + 129, e_vv)
+    # per-row diagonal terms: -beta_eff on free rows (operator diagonals
+    # are already in the scatter), BC diagonal on constrained rows,
+    # identity on block-padding rows (keeps every column nonsingular)
+    freep = _pad(bc_free, nP, False) & row_valid
+    if front is not None:
+        freep = (_pad(bc_free | is_front, nP, False)
+                 & ~_pad(off, nP, True)) & row_valid
+    betap = _pad(beta_eff_b.to(dt), nP, 0.0)
+    nnbrp = _pad(n_nbr, nP, 1.0)
+    one = torch.ones_like(betap)
+    d_uu = torch.where(freep, -betap,
+                       torch.where(_pad(bc_inf_u, nP, False), -nnbrp, one))
+    d_vv = torch.where(freep, -betap,
+                       torch.where(_pad(bc_inf_v, nP, False), -nnbrp, one))
+    # front rows have no diagonal beta term
+    if front is not None:
+        frp = _pad(is_front, nP, False) & row_valid
+        d_uu = torch.where(frp, 0.0, d_uu)
+        d_vv = torch.where(frp, 0.0, d_vv)
+    blocks.index_add_(0, diag, d_uu)
+    blocks.index_add_(0, diag + 129, d_vv)
+    Minv = torch.linalg.inv(blocks.reshape(nB, 128, 128))
+
+    def M(r):
+        ru, rv = r
+        rp = torch.zeros((nP, 2), dtype=dt, device=ru.device)
+        rp[:nTri] = torch.stack([ru, rv], dim=-1)
+        yb = torch.bmm(Minv, rp.reshape(nB, 128, 1))
+        y = yb.reshape(nP, 2)[:nTri]
+        return y[:, 0], y[:, 1]
+    return M
+
+
+C2_BLOCK = 64    # triangles per coarse aggregate (two-level preconditioner)
+
+
+def register_two_level_static(mesh, md: MeshData):
+    """Static tables for the two-level preconditioner: piecewise-constant
+    aggregates of C2_BLOCK contiguous triangles, and the block-column
+    structure of S_k = M_k @ P for the 5 shared-pattern b-grid operators.
+    The Galerkin coarse operator A_c = P^T A P is then assembled on the
+    device each viscosity iteration from the same per-row weights as the
+    matrix-free apply (make_A), inverted once, and its correction added to
+    the 2x2 block-Jacobi: the long-range near-null shelf modes that
+    block-local preconditioners cannot reach (PETSc KSP with composite
+    preconditioning is the reference's strength class, petsc_basic.f90)."""
+    if "c2_bcol" in md.extras:
+        return
+    import scipy.sparse as sp
+    ops = mesh.operators
+    mats = [ops.M2_ddx_b_b.tocsr(), ops.M2_ddy_b_b.tocsr(),
+            ops.M2_d2dx2_b_b.tocsr(), ops.M2_d2dxdy_b_b.tocsr(),
+            ops.M2_d2dy2_b_b.tocsr()]
+    nTri = mats[0].shape[0]
+    B = C2_BLOCK
+    nB = (nTri + B - 1) // B
+    blk = np.arange(nTri) // B
+    # prolongation columns masked to statically-free rows: the coarse
+    # correction is zero on BC rows, so their columns must not enter the
+    # Galerkin product (Dirichlet-consistent restriction). The dynamic
+    # off-ice mask of the ocean-pressure variant cannot be baked in here;
+    # those columns stay and merely soften the preconditioner.
+    free = md.x("ssa_bc_free").cpu().numpy()
+    P = sp.csr_matrix((free.astype(np.float64), (np.arange(nTri), blk)),
+                      shape=(nTri, nB))
+    P.eliminate_zeros()
+    Sk = [(m @ P).tocsr() for m in mats]
+    U = sum(abs(s) for s in Sk).tocsr()
+    U.sum_duplicates()
+    U.sort_indices()
+    counts = np.diff(U.indptr)
+    KB = max(int(counts.max()), 1)
+    bcol = np.zeros((nTri, KB), np.int64)
+    vals5 = np.zeros((nTri, KB, 5))
+    row_of = np.repeat(np.arange(nTri), counts)
+    pos = np.arange(U.nnz) - np.repeat(U.indptr[:-1], counts)
+    bcol[row_of, pos] = U.indices
+    valid = np.zeros((nTri, KB), bool)
+    valid[row_of, pos] = True
+    for k, s in enumerate(Sk):
+        sc = s.tocoo()
+        # position of (row, col) inside the union row
+        key = sc.row.astype(np.int64) * nB + sc.col
+        ukey = row_of.astype(np.int64) * nB + bcol[row_of, pos]
+        order = np.argsort(ukey)
+        loc = np.searchsorted(ukey[order], key)
+        vals5[row_of[order][loc], pos[order][loc], k] = sc.data
+    dt, dev = md.A.dtype, md.device
+    md.extras.update({
+        "c2_blk": EField(torch.as_tensor(blk, dtype=torch.int64,
+                                         device=dev), "C2row"),
+        "c2_bcol": EField(torch.as_tensor(bcol, device=dev), "C2nnz"),
+        "c2_vals5": EField(torch.as_tensor(vals5, dtype=dt, device=dev),
+                           "C2nnz"),
+        "c2_valid": EField(torch.as_tensor(valid, device=dev), "C2nnz"),
+    })
+
+
+def make_precond_two_level(md, N_b, dN_dx_b, dN_dy_b, beta_eff_b, Mbj,
+                           front=None):
+    """2x2 block-Jacobi `Mbj` (make_precond of the same fields and front)
+    + additive piecewise-constant coarse correction:
+    z = Mbj(r) + P A_c^{-1} P^T r restricted to free rows. A_c is the
+    Galerkin coarse operator assembled from the make_A row weights."""
+    bc_free = md.x("ssa_bc_free")
+    blk = md.x("c2_blk")
+    bcol = md.x("c2_bcol")
+    vals5 = md.x("c2_vals5")
+    valid = md.x("c2_valid")
+    nTri = N_b.shape[0]
+    nB = (blk.shape[0] + C2_BLOCK - 1) // C2_BLOCK
+    dt, dev = N_b.dtype, N_b.device
+
+    if front is not None:
+        is_front, off, n_x, n_y = front[:4]
+        ok = (bc_free | is_front) & ~off
+    else:
+        is_front = torch.zeros(nTri, dtype=torch.bool, device=dev)
+        n_x = n_y = torch.zeros(nTri, dtype=dt, device=dev)
+        ok = bc_free
+
+    # per-row weights of the 5 operators in each (u,v) coupling
+    # (make_A interior rows; front rows use the Neumann weights)
+    zero = torch.zeros(nTri, dtype=dt, device=dev)
+
+    def _w(interior, front_w):
+        w = torch.where(ok, interior, 0.0)
+        if front is not None:
+            w = torch.where(is_front & ~off, front_w, w)
+        return w
+    w_uu = [_w(4 * dN_dx_b, 4 * N_b * n_x), _w(dN_dy_b, N_b * n_y),
+            _w(4 * N_b, zero), _w(zero, zero), _w(N_b, zero)]
+    w_uv = [_w(dN_dy_b, N_b * n_y), _w(2 * dN_dx_b, 2 * N_b * n_x),
+            _w(zero, zero), _w(3 * N_b, zero), _w(zero, zero)]
+    w_vu = [_w(2 * dN_dy_b, 2 * N_b * n_y), _w(dN_dx_b, N_b * n_x),
+            _w(zero, zero), _w(3 * N_b, zero), _w(zero, zero)]
+    w_vv = [_w(dN_dx_b, N_b * n_x), _w(4 * dN_dy_b, 4 * N_b * n_y),
+            _w(N_b, zero), _w(zero, zero), _w(4 * N_b, zero)]
+
+    n2 = 2 * nB
+    Ac = torch.zeros(n2 * n2, dtype=dt, device=dev)
+    base = (2 * blk)[:, None] * n2 + 2 * bcol          # [nTri, KB]
+    vm = torch.where(valid, 1.0, 0.0).to(dt)
+    for (a, b, ws) in ((0, 0, w_uu), (0, 1, w_uv),
+                       (1, 0, w_vu), (1, 1, w_vv)):
+        e = sum(ws[k][:, None] * vals5[:, :, k] for k in range(5)) * vm
+        Ac.index_add_(0, (base + a * n2 + b).reshape(-1), e.reshape(-1))
+    # diagonal beta on free interior rows (front rows carry no beta)
+    beta_free = torch.where(bc_free & ~is_front, -beta_eff_b.to(dt), 0.0)
+    dsum = torch.zeros(nB, dtype=dt, device=dev).index_add_(0, blk,
+                                                             beta_free)
+    ar = torch.arange(nB, device=dev)
+    diag = (2 * ar) * n2 + 2 * ar
+    Ac.index_add_(0, diag, dsum)
+    Ac.index_add_(0, diag + n2 + 1, dsum)
+    # non-free rows are excluded from the coarse residual/prolongation;
+    # keep their aggregates nonsingular with an identity contribution
+    nfree = torch.zeros(nB, dtype=dt, device=dev).index_add_(
+        0, blk, torch.where(ok, 0.0, 1.0).to(dt))
+    Ac.index_add_(0, diag, nfree)
+    Ac.index_add_(0, diag + n2 + 1, nfree)
+    # a dense inverse (the reference's jnp.linalg.inv): the coarse apply is
+    # then one matrix-vector product per application
+    Ac_inv = torch.linalg.inv(Ac.reshape(n2, n2))
+
+    def M(r):
+        ru, rv = r
+        zu, zv = Mbj(r)
+        rc = torch.zeros(n2, dtype=dt, device=ru.device)
+        rc.index_add_(0, 2 * blk, torch.where(ok, ru, 0.0))
+        rc.index_add_(0, 2 * blk + 1, torch.where(ok, rv, 0.0))
+        zc = Ac_inv @ rc
+        zu = zu + torch.where(ok, zc[2 * blk], 0.0)
+        zv = zv + torch.where(ok, zc[2 * blk + 1], 0.0)
+        return zu, zv
+    return M
+
+
+def make_preconditioner(kind, md, A, fields, front=None, degree=3, b=None):
+    """The preconditioner `kind` (one of PRECONDITIONERS) of the operator
+    A = make_A(md, *fields, front=front), fields = (N_b, dN_dx_b, dN_dy_b,
+    beta_eff_b). Every kind but block_dense is built on the 2x2
+    block-Jacobi: alone, under a Chebyshev (spectrum estimated by power
+    iteration from b) or Neumann polynomial of `degree` operator applies -
+    on shelf-dominated states (beta_eff -> 0) plain block-Jacobi GMRES
+    stagnates - or with a coarse correction (two_level)."""
+    if kind == "block_dense":
+        return make_precond_dense(md, *fields, front=front)
+    M = make_precond(md, *fields, front=front)
+    if kind == "chebyshev":
+        lam = estimate_lambda_max(lambda w: M(A(w)), b, n_its=10)
+        return make_chebyshev_preconditioner(A, M, degree, lam)
+    if kind == "neumann":
+        return make_neumann_preconditioner(A, M, degree)
+    if kind == "two_level":
+        return make_precond_two_level(md, *fields, M, front=front)
+    if kind != "block_jacobi":
+        raise ValueError(f"unknown preconditioner '{kind}'")
     return M
 
 
@@ -233,17 +596,22 @@ class _ViscCarry:
     done: bool
 
 
+PRECONDITIONERS = ("block_jacobi", "chebyshev", "neumann", "block_dense",
+                   "two_level")
+
+
 def register_ssadiva_static(C, mesh, md: MeshData):
     """Register the SSA/DIVA static per-triangle tables (BC row masks and
     the same packed for the operator's kernel, fixed-row copy tables,
-    preconditioner diagonals) into md.extras."""
+    preconditioner diagonals, the chosen preconditioner's tables) into
+    md.extras."""
     if "ssa_bc_free" in md.extras:
         return
-    precond_choice = getattr(C, "tpu_stress_balance_precond", "")
-    if precond_choice not in ("", "block_jacobi"):
-        raise NotImplementedError(
-            f"tpu_stress_balance_precond '{precond_choice}' is not ported "
-            "yet (ported: block_jacobi)")
+    precond_choice = C.tpu_stress_balance_precond
+    if precond_choice not in PRECONDITIONERS:
+        raise ValueError(f"unknown tpu_stress_balance_precond "
+                         f"'{precond_choice}' (one of "
+                         f"{', '.join(PRECONDITIONERS)})")
     bc = make_bc_data(C, mesh)
     dt, dev = md.A.dtype, md.device
     ef = lambda a: EField(torch.as_tensor(a, device=dev), "Tri")
@@ -269,6 +637,10 @@ def register_ssadiva_static(C, mesh, md: MeshData):
         md.extras[name] = EField(torch.as_tensor(M.diagonal(), dtype=dt,
                                                  device=dev), "Tri")
     md.ssa_has_fix = bool(bc.fix_u.any() or bc.fix_v.any())
+    if precond_choice == "block_dense":
+        register_bjdense_static(mesh, md)
+    elif precond_choice == "two_level":
+        register_two_level_static(mesh, md)
     register_sliding_static(C, mesh, md)
 
 
@@ -287,9 +659,9 @@ def make_solve_ssa_diva(C, md: MeshData, choice: str, bedrock_cdfs=None):
     is_diva = choice == "DIVA"
     with_sia = choice == "SIA/SSA"
     krylov_restart = int(getattr(C, "tpu_stress_balance_krylov_restart", 60))
-    if getattr(C, "BC_ice_front", "infinite_slab") == "ocean_pressure":
-        raise NotImplementedError(
-            "BC_ice_front 'ocean_pressure' is not ported yet")
+    precond_kind = C.tpu_stress_balance_precond
+    precond_deg = int(C.tpu_stress_balance_precond_degree)
+    ocean_pressure = C.BC_ice_front == "ocean_pressure"
     n_glen = C.Glens_flow_law_exponent
     no_sliding = C.choice_sliding_law == "no_sliding"
     if "ssa_bc_free" not in md.extras:
@@ -347,11 +719,21 @@ def make_solve_ssa_diva(C, md: MeshData, choice: str, bedrock_cdfs=None):
         tau_dy_b = (-ice_density * grav * Hi_b
                     * md.M_ddy_a_b.exact_matvec(Hs))
 
+        # ocean-pressure variant (BC_ice_front='ocean_pressure'): the
+        # front of this solve's ice mask, its normals and back pressure
+        front = calc_front(md, Hi, Hb, SL, Hi_b) if ocean_pressure else None
+
         bed_roughness = _bed_roughness_fields(C, md, s.bed_roughness)
 
         Hi_reg = torch.clamp(Hi, min=0.1)
         b_u0 = torch.where(bc_free, -tau_dx_b, 0.0)
         b_v0 = torch.where(bc_free, -tau_dy_b, 0.0)
+        if front is not None:
+            # front rows balance the ocean back pressure; off rows are 0
+            b_u0 = torch.where(front.off, 0.0, torch.where(
+                front.is_front, front.tau_ox_b, b_u0))
+            b_v0 = torch.where(front.off, 0.0, torch.where(
+                front.is_front, front.tau_oy_b, b_v0))
         # f32 floor: a relative residual below ~100*eps_f32 is not
         # reachable in single precision; the Picard loop tolerates the
         # looser inner solve (inexact-Newton argument)
@@ -430,8 +812,8 @@ def make_solve_ssa_diva(C, md: MeshData, choice: str, bedrock_cdfs=None):
                     fraction_gr_b ** C.subgrid_friction_exponent_on_B_grid
 
             # linear solve (matrix-free GMRES)
-            A = make_A(md, N_b, dN_dx_b, dN_dy_b, beta_eff_b)
-            M = make_precond(md, N_b, dN_dx_b, dN_dy_b, beta_eff_b)
+            fields = (N_b, dN_dx_b, dN_dy_b, beta_eff_b)
+            A = make_A(md, *fields, front=front)
             b_u, b_v = b_u0, b_v0
             if has_fix:
                 # fixed rows: relaxed weighted copy of the previous solution
@@ -444,7 +826,9 @@ def make_solve_ssa_diva(C, md: MeshData, choice: str, bedrock_cdfs=None):
                 v_fix = C.visc_it_relax * v_fix + (1 - C.visc_it_relax) * c.v
                 b_u = torch.where(bc_fix_u, u_fix, b_u)
                 b_v = torch.where(bc_fix_v, v_fix, b_v)
-            res = gmres(A, (b_u, b_v), x0=(c.u, c.v), M=M,
+            Mp = make_preconditioner(precond_kind, md, A, fields, front,
+                                     precond_deg, (b_u, b_v))
+            res = gmres(A, (b_u, b_v), x0=(c.u, c.v), M=Mp,
                         rtol=rtol,
                         abstol=C.stress_balance_PETSc_abstol,
                         restart=krylov_restart)

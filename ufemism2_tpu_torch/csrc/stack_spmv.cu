@@ -4,7 +4,9 @@
 //   diva_apply:  (Au, Av)[r] of the linearised SSA/DIVA momentum operator,
 //                from the same sum for the five b-grid derivative operators
 //                applied to (u, v), scaled by the per-triangle fields, with
-//                the boundary rows written in the same launch.
+//                the boundary rows - and, with an ocean-pressure calving
+//                front, the front rows and the identity rows off the ice -
+//                written in the same launch.
 //
 // for n_ops operators that share one sparsity pattern (padded ELL).
 //
@@ -52,8 +54,11 @@
 // ROUND (f32 only) rounds the gathered x operand to bfloat16 (round to
 // nearest even) and back, reproducing the reference's default f32 matvec
 // arithmetic, in which the x side is rounded and the coefficients are not.
-// In diva_apply only the derivative terms see the rounded value: beta * u
-// and the boundary rows use u and v as they are.
+// In diva_apply only the derivative terms see the rounded value: beta * u,
+// the boundary rows and the rows off the ice use u and v as they are; the
+// front rows are made of derivative terms alone. A front adds to the bytes
+// the row codes of the solve (one byte a row, as the static ones) and the
+// two normals of each front row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,6 +109,30 @@ __device__ __forceinline__ void st_vec(double* p, const double (&v)[2]) {
     *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
 }
 
+// Products and sums rounded once each, never contracted into a fused
+// multiply-add: the scaling of a diva_apply row is then, term for term and
+// rounding for rounding, what one tensor operation per term computes from
+// the same derivatives, so the fused operator and the plain version differ
+// only in the order of the derivative sums (and, in the instance with a
+// calving front, whose derivative sums are formed the same way, not at
+// all). That matters because the f32 GMRES solves end at their precision
+// floor, where the iteration counts follow every rounding: with one lane a
+// row the infinite-slab operator gives the model run the same trajectory,
+// to the bit, as the stack kernel followed by separate launches for the
+// scaling.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+    return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+    return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+    return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+    return __dadd_rn(a, b);
+}
+
 // The operand of a row sum: W values for a column index c.
 template <typename T, int W>
 struct ColumnsOfX {            // W neighbouring columns of row c of x
@@ -125,13 +154,17 @@ struct PairUV {                // (u[c], v[c]) of two vectors
 
 // acc[o][w] = sum over this lane's entries of row r of
 // vals[o, k, r] * X(cols[k, r])[w]; then the sum over the LANES lanes of
-// the row, left in every lane. KT > 0: K is KT, unrolled.
+// the row, left in every lane. KT > 0: K is KT, unrolled. EXACT (one lane
+// a row): each product and each sum rounded once, k = 0, 1, ... in turn
+// from 0 - the order of diva_apply_plain's derivative sums; otherwise the
+// compiler contracts them into fused multiply-adds.
 template <typename T, int NOPS, bool ROUND, int KT, int W, int LANES,
-          typename X>
+          bool EXACT = false, typename X>
 __device__ __forceinline__ void row_sums(const int* __restrict__ cols,
                                          const T* __restrict__ vals,
                                          const X& x, int n_rows, int K,
                                          int r, int lane, T (&acc)[NOPS][W]) {
+    static_assert(!EXACT || LANES == 1, "one order needs one lane a row");
 #pragma unroll
     for (int o = 0; o < NOPS; ++o)
 #pragma unroll
@@ -170,7 +203,12 @@ __device__ __forceinline__ void row_sums(const int* __restrict__ cols,
             for (int w = 0; w < W; ++w) {
                 const T xr = ROUND ? round_bf16<T>(xv[i][w]) : xv[i][w];
 #pragma unroll
-                for (int o = 0; o < NOPS; ++o) acc[o][w] += a[o][i] * xr;
+                for (int o = 0; o < NOPS; ++o) {
+                    if constexpr (EXACT)
+                        acc[o][w] = add_rn(acc[o][w], mul_rn(a[o][i], xr));
+                    else
+                        acc[o][w] += a[o][i] * xr;
+                }
             }
     } else {
 #pragma unroll 4
@@ -183,8 +221,13 @@ __device__ __forceinline__ void row_sums(const int* __restrict__ cols,
             for (int w = 0; w < W; ++w) {
                 const T xr = ROUND ? round_bf16<T>(xk[w]) : xk[w];
 #pragma unroll
-                for (int o = 0; o < NOPS; ++o)
-                    acc[o][w] += __ldg(vals + (size_t)o * K * n_rows + e) * xr;
+                for (int o = 0; o < NOPS; ++o) {
+                    const T a = __ldg(vals + (size_t)o * K * n_rows + e);
+                    if constexpr (EXACT)
+                        acc[o][w] = add_rn(acc[o][w], mul_rn(a, xr));
+                    else
+                        acc[o][w] += a * xr;
+                }
             }
         }
     }
@@ -228,28 +271,6 @@ __global__ void stack_spmv_kernel(const int* __restrict__ cols,
     }
 }
 
-// Products and sums rounded once each, never contracted into a fused
-// multiply-add: the scaling of a row is then, term for term and rounding
-// for rounding, what one tensor operation per term computes from the same
-// derivatives, so the fused operator and the plain version differ only in
-// the order of the derivative sums. That matters because the f32 GMRES
-// solves end at their precision floor, where the iteration counts follow
-// every rounding: with one lane a row the fused operator gives the model
-// run the same trajectory, to the bit, as the stack kernel followed by
-// separate launches for the scaling.
-__device__ __forceinline__ float mul_rn(float a, float b) {
-    return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-    return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float add_rn(float a, float b) {
-    return __fadd_rn(a, b);
-}
-__device__ __forceinline__ double add_rn(double a, double b) {
-    return __dadd_rn(a, b);
-}
-
 // t1 + t2 + t3 + t4 - t5 + t6 + t7 + t8 with a1..a8 * b1..b8, left to right
 template <typename T>
 __device__ __forceinline__ T row_expr(T a1, T b1, T a2, T b2, T a3, T b3,
@@ -266,9 +287,27 @@ __device__ __forceinline__ T row_expr(T a1, T b1, T a2, T b2, T a3, T b3,
 
 // Row codes of diva_apply: 0 is a free row; on any other row bit 1 says
 // that the u row is the 'infinite' form and bit 2 that the v row is
-// (otherwise the identity).
+// (otherwise the identity). With a calving front, bit 3 marks a front row
+// and bit 4 a row off the ice; off wins over front, front over the rest.
 #define UF_ROW_INF_U 2
 #define UF_ROW_INF_V 4
+#define UF_ROW_FRONT 8
+#define UF_ROW_OFF 16
+
+// The ocean-pressure front row (solve_linearised_SSA_DIVA_ocean_pressure
+// .f90:445-560, ufemism2_tpu/core/ice/ssadiva.py:218-231):
+//   4 N nx dp/dx + N ny dp/dy + 2 N nx dq/dy + N ny dq/dx
+// with (p, q, nx, ny) = (u, v, n_x, n_y) for Au and (v, u, n_y, n_x) for
+// Av, each product formed left to right and the four added left to right,
+// every operation rounded once, as the plain version's tensor operations.
+template <typename T>
+__device__ __forceinline__ T front_row(T Nr, T fx, T fy, T dpx, T dpy,
+                                       T dqy, T dqx) {
+    T s = add_rn(mul_rn(mul_rn(T(4) * Nr, fx), dpx),
+                 mul_rn(mul_rn(Nr, fy), dpy));
+    s = add_rn(s, mul_rn(mul_rn(T(2) * Nr, fx), dqy));
+    return add_rn(s, mul_rn(mul_rn(Nr, fy), dqx));
+}
 
 // sum(x[nbrs]) - n * x over the up to three neighbour triangles (-1: none).
 // The three are added as (x0 + x2) + x1, the order torch.sum takes over a
@@ -291,7 +330,11 @@ __device__ __forceinline__ T nbr_residual(const T* __restrict__ x,
 // The operands u and v are two vectors (the two halves of the flat Krylov
 // vector, or two tensors), gathered entry by entry; one group of LANES
 // lanes per triangle row, ten sums in registers, Au and Av written once.
-template <typename T, bool ROUND, int KT, int LANES>
+// FRONT: the operator has an ocean-pressure front (per-solve row codes and
+// outward normals fx, fy), and its derivative sums are EXACT, so that every
+// row equals the plain version's to the bit; without it the instance is
+// the infinite-slab operator's instruction stream, unchanged.
+template <typename T, bool ROUND, int KT, int LANES, bool FRONT>
 __global__ void diva_apply_kernel(const int* __restrict__ cols,
                                   const T* __restrict__ vals,
                                   const T* __restrict__ u,
@@ -302,6 +345,8 @@ __global__ void diva_apply_kernel(const int* __restrict__ cols,
                                   const T* __restrict__ beta,
                                   const int* __restrict__ tric,
                                   const unsigned char* __restrict__ code,
+                                  const T* __restrict__ fx,
+                                  const T* __restrict__ fy,
                                   T* __restrict__ Au, T* __restrict__ Av,
                                   int n_rows, int K) {
     const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -313,12 +358,25 @@ __global__ void diva_apply_kernel(const int* __restrict__ cols,
     // [operator: ddx, ddy, dxx, dxy, dyy][0: of u, 1: of v]
     T dd[5][2];
     const PairUV<T> uv{u, v};
-    row_sums<T, 5, ROUND, KT, 2, LANES>(cols, vals, uv, n_rows, K, r, lane,
-                                        dd);
+    row_sums<T, 5, ROUND, KT, 2, LANES, FRONT>(cols, vals, uv, n_rows, K, r,
+                                               lane, dd);
     if (!live || lane != 0) return;
 
     const T ur = __ldg(u + r), vr = __ldg(v + r);
     const int cd = code[r];
+    if (FRONT && (cd & UF_ROW_OFF)) {          // identity off the ice
+        Au[r] = ur;
+        Av[r] = vr;
+        return;
+    }
+    if (FRONT && (cd & UF_ROW_FRONT)) {        // derivatives of rounded x
+        const T Nr = __ldg(N + r), nxr = __ldg(fx + r), nyr = __ldg(fy + r);
+        Au[r] = front_row<T>(Nr, nxr, nyr, dd[0][0], dd[1][0], dd[1][1],
+                             dd[0][1]);
+        Av[r] = front_row<T>(Nr, nyr, nxr, dd[1][1], dd[0][1], dd[0][0],
+                             dd[1][0]);
+        return;
+    }
     if (cd == 0) {
         const T Nr = __ldg(N + r), nx = __ldg(dNx + r), ny = __ldg(dNy + r);
         const T be = __ldg(beta + r);
@@ -371,6 +429,8 @@ struct DivaDesc {           // mirrored by ops/cuda_spmv.py::_DivaDesc
     const void* beta;
     const int* tric;        // [n_rows, 3], -1: no neighbour
     const unsigned char* code;
+    const void* fx;         // [n_rows] outward front normal; null: no front
+    const void* fy;
     int n_rows, K, round_x_bf16;
 };
 
@@ -432,15 +492,22 @@ template <typename T, bool ROUND>
 static int diva_apply(const DivaDesc& op, const T* u, const T* v, T* Au,
                       T* Av, cudaStream_t stream) {
     if (op.n_rows == 0) return 0;
-#define UF_GO(KT, L)                                                        \
-    diva_apply_kernel<T, ROUND, KT, L>                                      \
+#define UF_GO(KT, L, F)                                                     \
+    diva_apply_kernel<T, ROUND, KT, L, F>                                   \
         <<<n_blocks(op.n_rows, L), UF_THREADS, 0, stream>>>(                \
             op.cols, static_cast<const T*>(op.vals), u, v,                  \
             static_cast<const T*>(op.N), static_cast<const T*>(op.dNx),     \
             static_cast<const T*>(op.dNy), static_cast<const T*>(op.beta),  \
-            op.tric, op.code, Au, Av, op.n_rows, op.K)
-    if (op.K == 10) { UF_GO(10, UF_LANES_DIVA); }
-    else { UF_GO(0, 1); }
+            op.tric, op.code, static_cast<const T*>(op.fx),                 \
+            static_cast<const T*>(op.fy), Au, Av, op.n_rows, op.K)
+    const bool front = op.fx != nullptr;
+    if (op.K == 10) {
+        if (front) { UF_GO(10, UF_LANES_DIVA, true); }
+        else { UF_GO(10, UF_LANES_DIVA, false); }
+    } else {
+        if (front) { UF_GO(0, 1, true); }
+        else { UF_GO(0, 1, false); }
+    }
 #undef UF_GO
     return (int)cudaGetLastError();
 }

@@ -7,11 +7,14 @@ the per-step field work (PC ice dynamics, component models) runs on one
 device. Mesh building is a host-side event.
 
 This slice covers a fixed mesh built from an idealised geometry, the
-stress balances none/SIA/SSA/DIVA/SIA+SSA, uniform SMB/BMB/LMB/AMB, the
-'none' climate and the 3-D heat equation with a uniform geothermal flux
-(fused into the ice-step loop as the reference's make_pc_multistep does).
-Every other choice raises NotImplementedError at construction, naming
-the choice.
+stress balances none/SIA/SSA/DIVA/SIA+SSA (with the ocean-pressure
+calving front), uniform SMB/BMB/LMB/AMB, the 'none' climate, the 3-D heat
+equation with a uniform geothermal flux (fused into the ice-step loop as
+the reference's make_pc_multistep does), a fixed sea level, the MISMIP+
+flow-factor tuning slot and the scalar half of the output (appended to
+`scalars_history`). Every other choice raises NotImplementedError at
+construction, naming the choice; so does an output directory, since the
+field and NetCDF writers are not ported (ROADMAP A.18).
 """
 
 from __future__ import annotations
@@ -25,12 +28,13 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..core.mesh_data import build_mesh_data
+from ..core.mesh_data import build_mesh_data, EField
 from ..core.ice.state import init_ice_state
 from ..core.ice.pc import (make_pc_step, make_solve_stress_balance,
                            interpolate_ice_to_time)
 from ..core.ice.masks import determine_masks
 from ..core.ice.subgrid import calc_grounded_fractions_bilin_TAF
+from ..core.ice.scalars import calc_ice_scalars
 from ..core.ice.bedrock_cdf import build_bedrock_cdfs_from_config
 from ..core.ice.thermodynamics import (
     register_thermo_static, make_heat_solver, make_geothermal_flux,
@@ -71,7 +75,7 @@ def _check_slice(C, name):
     _require(C, "do_bed_roughness_nudging", (False,))
     _require(C, "do_target_dHi_dt", (False,))
     _require(C, "choice_tracer_tracking_model", ("none",))
-    _require(C, "refgeo_idealised_MISMIPplus_tune_A", (False,))
+    _require(C, "do_write_checksum_log", (False,))
     _require(C, f"pc_choice_initialise_{name}", ("zero",))
     _require(C, f"choice_initial_velocity_{name}", ("zero",))
     _require(C, "tpu_n_devices", (1,), "multi-device runs")
@@ -87,11 +91,17 @@ class ModelRegion:
     name: str = "ANT"
     mesh: Optional[Mesh] = None
     time: float = 0.0
+    output_dir: Optional[str] = None
     device: str = "cuda"
 
     def __post_init__(self):
         C = self.C
         _check_slice(C, self.name)
+        if self.output_dir is not None:
+            raise NotImplementedError(
+                "ModelRegion output_dir: the field and NetCDF output files "
+                "are not ported yet (ROADMAP A.18); the scalars go to "
+                "scalars_history")
         self.device = resolve_device(self.device)
         with routine("initialise_model_region"):
             if self.mesh is None:
@@ -101,6 +111,14 @@ class ModelRegion:
                 else torch.float64
             self.md = build_mesh_data(self.mesh, dtype=dtype,
                                       device=self.device)
+            if C.refgeo_idealised_MISMIPplus_tune_A \
+                    and C.choice_ice_rheology_Glen == "uniform":
+                # dynamic flow-factor multiplier: the MISMIP+ tuning loop
+                # (main/program.py mismipplus_adapt_flow_factor) updates
+                # it in place between coupling intervals
+                self.md.extras["glen_A_scale"] = EField(
+                    torch.tensor(1.0, dtype=dtype, device=self.device),
+                    "scalar")
 
             # initial geometry on the mesh vertices
             Hi, Hb, Hs, SL = calc_idealised_geometry(
@@ -221,13 +239,48 @@ class ModelRegion:
                     **aux0)
                 self._sync()
 
-            # event scheduling (UFEMISM_main_model.f90:598-609)
+            # event scheduling (UFEMISM_main_model.f90:598-609); the
+            # ocean ('none') and restart events do nothing here but bound
+            # the ice windows as the reference's do
             t0 = self.time
-            self.t_next = {"climate": t0, "SMB": t0, "BMB": t0, "LMB": t0}
-            self.dt_comp = {"climate": C.dt_climate, "SMB": C.dt_SMB,
-                            "BMB": C.dt_BMB, "LMB": C.dt_LMB}
+            self.t_next = {"climate": t0, "ocean": t0, "SMB": t0, "BMB": t0,
+                           "LMB": t0, "output": t0, "output_restart": t0}
+            self.dt_comp = {"climate": C.dt_climate, "ocean": C.dt_ocean,
+                            "SMB": C.dt_SMB, "BMB": C.dt_BMB,
+                            "LMB": C.dt_LMB, "output": C.dt_output,
+                            "output_restart": C.dt_output_restart}
             self.n_dt_ice = 0
             self.wallclock = 0.0
+            self.scalars_history = []
+
+    def set_sealevel(self, sealevel: float):
+        """Apply a (possibly time-varying) global sea level to the region
+        (update_sealevel_at_model_time; derived geometry and masks are
+        recomputed from SL in the next ice-dynamics step)."""
+        self.state = self.state.replace(
+            SL=torch.full_like(self.state.SL, sealevel))
+        return self
+
+    def write_output(self):
+        """The scalar half of the reference's output event: masks,
+        grounded fractions, the integrated scalars and the solver
+        counters at the region's time, appended to `scalars_history`
+        (one host read). The field and NetCDF writes wait for ROADMAP
+        A.18."""
+        s = interpolate_ice_to_time(self.state, self.time)
+        m, fg = self._masks_fracs(s.Hi, s.Hb, s.SL)
+        scal = calc_ice_scalars(self.md, s.Hi, s.Hb, s.SL, fg, self.SMB,
+                                self.BMB, self.LMB, masks=m,
+                                fraction_margin=s.fraction_margin,
+                                u_vav_b=s.u_vav_b, v_vav_b=s.v_vav_b,
+                                dHi_dt=s.dHi_dt,
+                                dHi_dt_target=s.dHi_dt_target)
+        values = torch.stack([v.to(torch.float64)
+                              for v in scal.values()]).tolist()
+        rec = {"time": self.time, **dict(zip(scal, values))}
+        rec.update(dt_ice=float(s.dt_ice), n_visc_its=float(s.n_visc_its),
+                   n_Axb_its=float(s.n_Axb_its))
+        self.scalars_history.append(rec)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -338,6 +391,13 @@ class ModelRegion:
         if need("LMB"):
             self.LMB = self.run_lmb(t, s, masks)
             bump("LMB")
+        if need("ocean"):
+            bump("ocean")
+        if need("output"):
+            self.write_output()
+            bump("output")
+        if need("output_restart"):
+            bump("output_restart")
 
 
 def _build_bedrock_cdfs(C, mesh, region_name, md):

@@ -11,7 +11,8 @@ that neighbouring rows lie at neighbouring addresses; padded entries
 point at column 0 with value 0. The second, `diva_apply`, is the whole
 linearised SSA/DIVA momentum operator (the five-operator derivative stack
 applied to (u, v), the scaling by the per-triangle fields and the
-boundary rows) in one launch.
+boundary rows; with an ocean-pressure calving front also the front rows
+and the identity rows off the ice) in one launch.
 
 The CUDA source csrc/stack_spmv.cu holds both. It is compiled with nvcc
 at first use into a shared library with a plain C interface (under build/
@@ -51,7 +52,8 @@ class _StackDesc(ctypes.Structure):      # csrc/stack_spmv.cu::StackDesc
 
 class _DivaDesc(ctypes.Structure):       # csrc/stack_spmv.cu::DivaDesc
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "cols", "vals", "N", "dNx", "dNy", "beta", "tric", "code")] + [
+        "cols", "vals", "N", "dNx", "dNy", "beta", "tric", "code", "fx",
+        "fy")] + [
         (name, ctypes.c_int) for name in ("n_rows", "K", "round_x_bf16")]
 
 
@@ -184,6 +186,7 @@ def stack_spmv(cols, vals, x, round_x_bf16=False):
 # ---------------------------------------------------------------------------
 
 ROW_BOUNDARY, ROW_INF_U, ROW_INF_V = 1, 2, 4     # bits of a row's code
+ROW_FRONT, ROW_OFF = 8, 16        # per-solve bits of an ocean-pressure front
 
 
 @dataclass
@@ -215,16 +218,29 @@ class DivaRows:
 
 
 def diva_apply_plain(stack, rows, N_b, dN_dx_b, dN_dy_b, beta_eff_b, u, v,
-                     round_x_bf16=False):
+                     round_x_bf16=False, front=None):
     """Plain tensor version of `diva_apply`: (Au, Av) of the linearised
     SSA/DIVA momentum operator (solve_linearised_SSA_DIVA_infinite_slab.f90
     rows) from the five-operator stack `stack` (cols, vals of
-    ddx, ddy, d2dx2, d2dxdy, d2dy2 on the b-grid)."""
+    ddx, ddy, d2dx2, d2dxdy, d2dy2 on the b-grid). `front` =
+    (is_front, off, n_x, n_y) adds the ocean-pressure calving front
+    (solve_linearised_SSA_DIVA_ocean_pressure.f90:445-560): Neumann
+    back-pressure rows at the front, identity rows off the ice; off wins
+    over front, front over every other row kind."""
     cols, vals = stack
     # all 10 derivative fields at once: u and v ride the trailing axis of
-    # the stacked input
-    d = stack_spmv_plain(cols, vals, torch.stack([u, v], dim=-1),
-                         round_x_bf16)
+    # the stacked input. The sums run over the entries k = 0, 1, ... in
+    # turn from 0, each product and each sum one tensor operation (rounded
+    # once, never fused): the kernel's instance with a front adds in this
+    # order, and so equals this version to the bit.
+    x = torch.stack([u, v], dim=-1)
+    if round_x_bf16:
+        x = _round_bf16(x)
+    xg = x[cols.long()]                       # [K, n_rows, 2]
+    d = torch.zeros((vals.shape[0],) + xg.shape[1:], dtype=x.dtype,
+                    device=x.device)
+    for k in range(vals.shape[1]):
+        d = d + vals[:, k, :, None] * xg[k]
     ddx_u, ddy_u, dxx_u, dxy_u, dyy_u = (d[i][:, 0] for i in range(5))
     ddx_v, ddy_v, dxx_v, dxy_v, dyy_v = (d[i][:, 1] for i in range(5))
 
@@ -247,6 +263,14 @@ def diva_apply_plain(stack, rows, N_b, dN_dx_b, dN_dy_b, beta_eff_b, u, v,
         rows.inf_u, nbr_mean_residual(u), u))
     Av = torch.where(rows.free, Av, torch.where(
         rows.inf_v, nbr_mean_residual(v), v))
+    if front is not None:
+        is_front, off, n_x, n_y = front
+        Au_f = (4 * N_b * n_x * ddx_u + N_b * n_y * ddy_u
+                + 2 * N_b * n_x * ddy_v + N_b * n_y * ddx_v)
+        Av_f = (4 * N_b * n_y * ddy_v + N_b * n_x * ddx_v
+                + 2 * N_b * n_y * ddx_u + N_b * n_x * ddy_u)
+        Au = torch.where(off, u, torch.where(is_front, Au_f, Au))
+        Av = torch.where(off, v, torch.where(is_front, Av_f, Av))
     return (Au, Av)
 
 
@@ -256,10 +280,16 @@ class DivaOperator:
     `A.flat(x)` takes and gives the flat Krylov vector [u; v]. In float32
     the derivative terms see u and v rounded to bfloat16 when `stack`
     rounds (its plain apply does); `beta_eff_b * u` and the boundary rows
-    never do."""
+    never do.
+
+    `front` = (is_front, off, n_x, n_y), per solve, adds the ocean-pressure
+    calving front: the operator then carries its own row codes (the static
+    ones with ROW_FRONT and ROW_OFF set), formed once here on the device,
+    and the kernel instance that reads them and the normals; without a
+    front the kernel is the infinite-slab instance."""
 
     def __init__(self, stack: StackOperator, rows: DivaRows, N_b, dN_dx_b,
-                 dN_dy_b, beta_eff_b, round_x_bf16=False):
+                 dN_dy_b, beta_eff_b, round_x_bf16=False, front=None):
         n = stack.n_rows
         fields = (N_b, dN_dx_b, dN_dy_b, beta_eff_b)
         if stack.n_ops != 5:
@@ -276,11 +306,27 @@ class DivaOperator:
                                 f"operators {stack.dtype}")
         if rows.free.shape[0] != n:
             raise ValueError("diva_apply: row tables of another mesh")
-        for t in fields + (rows.code, rows.tric32):
+        code, normals = rows.code, ()
+        if front is not None:
+            is_front, off, n_x, n_y = front
+            for m in (is_front, off):
+                if m.shape != (n,) or m.dtype != torch.bool:
+                    raise ValueError("diva_apply: front masks must be bool "
+                                     f"[{n}]")
+            for f in (n_x, n_y):
+                if f.shape != (n,) or f.dtype != stack.dtype:
+                    raise TypeError("diva_apply: front normals must be "
+                                    f"{stack.dtype} [{n}]")
+            code = (code | (ROW_FRONT * is_front.to(torch.uint8))
+                    | (ROW_OFF * off.to(torch.uint8)))
+            normals = (n_x.contiguous(), n_y.contiguous())
+            front = (is_front, off) + normals
+        for t in fields + (code, rows.tric32) + normals:
             if t.device != stack.device:
                 raise ValueError("diva_apply: operands on different devices")
         self.stack, self.rows, self.n = stack, rows, n
         self.round = bool(round_x_bf16)
+        self.front, self.code = front, code
         # contiguous copies where needed, kept alive with the pointers
         self.fields = tuple(f.contiguous() for f in fields)
         self._index = stack._index
@@ -291,7 +337,9 @@ class DivaOperator:
             self._desc = _DivaDesc(
                 stack.cols.data_ptr(), stack.vals.data_ptr(),
                 *(f.data_ptr() for f in self.fields), rows.tric32.data_ptr(),
-                rows.code.data_ptr(), n, stack.K, self.round)
+                code.data_ptr(),
+                *([f.data_ptr() for f in normals] or [None, None]),
+                n, stack.K, self.round)
             self._desc_ptr = ctypes.addressof(self._desc)
             self._step = n * stack.vals.element_size()
 
@@ -308,7 +356,8 @@ class DivaOperator:
 
     def _plain(self, u, v):
         return diva_apply_plain((self.stack.cols, self.stack.vals),
-                                self.rows, *self.fields, u, v, self.round)
+                                self.rows, *self.fields, u, v, self.round,
+                                self.front)
 
     def _launch(self, pu, pv, y):
         global diva_launches
