@@ -75,6 +75,33 @@ of which ends the run with a non-zero exit if it fails:
               must not) and by GMRES(300) (every one but block_jacobi must
               converge); converged means below the iteration cap with the
               true residual within the stopping rule.
+12. remesh  - the main path's configuration with remeshing on (the
+              schema's default), f32, driven like the main path across the
+              first mesh-fitness check at 50 model years (update_mesh() is
+              called at the window's end if the check does not fire),
+              with at least three ice steps on the new mesh: the meshes'
+              sizes, the remesh wall time in three parts (mesh build, map
+              build, device rebuild) and the first step's, the new
+              operators' ELL widths, the window's rates with the remesh in
+              it, held to the RM_* counts; then diva_apply on the last
+              operator apply of the remeshed mesh and stack_spmv on its
+              five-operator stack against their plain versions.
+13. small_remesh - the coarse configuration in f64 with outputs and one
+              forced update_mesh(), on the card and on the CPU: the same
+              new mesh, the same steps, viscosity and Krylov iterations
+              after it, fields within the small phase's gaps, the mesh
+              output at generation 00002.
+14. mismipplus_resume - the JAX package's MISMIP+ 5 km spin-up state
+              (the committed NetCDF classic copy of its restart, t =
+              11,425) resumed with its flow-factor scale 0.34 and run for
+              one coupling interval with outputs, restarts and remeshing
+              on: in f32 and in f64 on the card, the f64 run held to the
+              same run on the CPU over its first two ice steps (equal
+              counts, small's gaps), and to a fresh region resumed from the
+              port's own restart written halfway (equal steps and counts,
+              fields within 1e-12); a run perturbed by 1e-15 measures the
+              state's sensitivity; every output file read back through the
+              port's ncio, without h5py.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -85,6 +112,7 @@ import contextlib
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -159,6 +187,17 @@ THERMO = dict(choice_thermo_model="3D_heat_equation",
 # the small configuration with a thermodynamics step every ice step
 SMALL_THERMO = dict(SMALL, **dict(THERMO, dt_thermodynamics=0.1))
 FULL_THERMO = dict(FULL, **THERMO)
+# the main path with remeshing on, as the schema and bench.py's amortised
+# window have it: the first fitness check comes dt_mesh_update_min (50 yr)
+# after the start, inside the 20 -> 60 yr window
+FULL_REMESH = dict(FULL, allow_mesh_updates=True)
+# its f32 trajectory on the card: the new mesh (nV, nTri), the window's
+# Krylov iterations and the grounding line at its end [km], fixed by the
+# first run of the phase on an NVIDIA H100 80GB HBM3
+RM_MESH, RM_WINDOW_AXB_ITS, RM_X_GL_KM = (14240, 28394), 3998, 454.061
+RM_STEPS_AFTER = 3          # ice steps on the new mesh at least
+# the small configuration with remeshing on, for small_remesh
+SMALL_REMESH = dict(SMALL, allow_mesh_updates=True)
 # tests/test_halfar.py's configuration (SIA, no sliding, 50-100 km), on a
 # fixed mesh, in f64, to 200 model years
 HALFAR = dict(
@@ -221,6 +260,28 @@ MISMIPPLUS = dict(
     start_time_of_run=0.0, end_time_of_run=1.0, dt_coupling=0.25,
     dt_output=0.25,
 )
+# The JAX package's MISMIP+ 5 km spin-up at t = 11,425 (nV 632, nTri 1,134;
+# validation_runs/persist/mismipplus_5km_spinup/restart_ANT_00001.nc, a
+# NetCDF4 file) in its NetCDF classic copy, which needs no h5py; the
+# spin-up's tuned flow-factor scale and the flow factor it scaled
+# (glen_A_scale.json beside the restart: scale 0.34, A0 1.156e-17)
+MP_RESTART = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "data",
+                          "mismipplus_5km_restart_t11425_classic.nc")
+MP_GLEN_A_SCALE = 0.34
+# the stand-in's physics resumed from that state, with the spin-up's flow
+# factor, remeshing on (the schema's default) and outputs: one coupling
+# interval of one model year, an output and a restart every half year
+MP_RESUME = dict(MISMIPPLUS, uniform_Glens_flow_factor=1.156e-17,
+                 allow_mesh_updates=True, start_time_of_run=11425.0,
+                 end_time_of_run=11426.0, dt_coupling=1.0, dt_output=0.5,
+                 dt_output_restart=0.5)
+# the f64 card run is held to the CPU's over its first two ice steps (0.2
+# model years): from the third on, thin ice on the side walls crosses the
+# Hi_min removal threshold at a few vertices, and there the run follows
+# the last bit of any rounding (the phase measures how far one 1e-15
+# perturbation carries by the halfway point)
+MP_CMP_YR = 0.2
 # its f32 trajectory on the card: GMRES iterations of the initial solve,
 # Krylov iterations of the run, ice volume at its end [m^3], fixed by the
 # first run of the phase on an NVIDIA H100 80GB HBM3
@@ -775,23 +836,11 @@ def drive_full(C, mesh, tag, after_construct=None, after_warm=None):
     kernel count set to 0 before and read after. `after_construct(region)`
     and `after_warm()` may install timers and read them. Returns (region,
     state, numbers)."""
-    from ufemism2_tpu_torch.core.ice import ssadiva
     from ufemism2_tpu_torch.main.region import ModelRegion
-    from ufemism2_tpu_torch.ops import cuda_heat, cuda_spmv
+    from ufemism2_tpu_torch.ops import cuda_spmv
 
-    gm = {"calls": 0, "its": 0}
-    gmres_inner = ssadiva.gmres
-
-    def gmres_counted(*a, **kw):
-        res = gmres_inner(*a, **kw)
-        gm["calls"] += 1
-        gm["its"] += res.n_iter
-        return res
-    ssadiva.gmres = gmres_counted
-    try:
-        cuda_spmv.launches = 0
-        cuda_spmv.diva_launches = 0
-        cuda_heat.launches = 0
+    with counted_gmres() as gm:
+        zero_counts()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         region = ModelRegion(C, "ANT", mesh=mesh)  # device defaults to cuda
@@ -822,11 +871,7 @@ def drive_full(C, mesh, tag, after_construct=None, after_warm=None):
         state = region.run_to(T_WARM + WINDOW)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        counts = dict(stack_spmv_launches=cuda_spmv.launches,
-                      diva_apply_launches=cuda_spmv.diva_launches,
-                      heat_columns_launches=cuda_heat.launches)
-    finally:
-        ssadiva.gmres = gmres_inner
+        counts = read_counts()
 
     n_tensors = check_state(state, "cuda")
     volume = float((state.Hi * region.md.A).sum())
@@ -998,49 +1043,34 @@ def mismipplus_phase(workdir):
     kernel count set to 0 before and read after; the GMRES calls counted
     and the last one's operator and operands kept. Wall times come from
     the program's own resource_tracking.jsonl."""
-    from ufemism2_tpu_torch.core.ice import ssadiva
     from ufemism2_tpu_torch.main import program
     from ufemism2_tpu_torch.main.region import ModelRegion
-    from ufemism2_tpu_torch.ops import cuda_heat, cuda_spmv
     from ufemism2_tpu_torch.utils.logging_utils import get_tracker
     cfg = write_namelist(os.path.join(workdir, "mismipplus_standin.cfg"),
                          MISMIPPLUS)
     out_dir = os.path.join(workdir, "mismipplus_out")
-    gm = {"calls": 0, "its": 0, "first_calls": None, "first_its": None}
-    last = {}
-    gmres_inner = ssadiva.gmres
-
-    def gmres_counted(A, b, x0=None, M=None, **kw):
-        res = gmres_inner(A, b, x0=x0, M=M, **kw)
-        gm["calls"] += 1
-        gm["its"] += res.n_iter
-        last.update(A=A, b=b, x0=x0, x=res.x, kw=kw)
-        return res
     run_to_inner = ModelRegion.run_to
-
-    def run_to_marked(self, *a, **kw):
-        # the GMRES work before the first run_to is the initial solve
-        if gm["first_its"] is None:
-            gm["first_its"], gm["first_calls"] = gm["its"], gm["calls"]
-        return run_to_inner(self, *a, **kw)
-    ssadiva.gmres = gmres_counted
-    ModelRegion.run_to = run_to_marked
     get_tracker().reset()         # earlier phases' routines
-    try:
-        cuda_spmv.launches = 0
-        cuda_spmv.diva_launches = 0
-        cuda_heat.launches = 0
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(sys.stderr):
-            regions = program.main([cfg, "--output-dir", out_dir])
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-        counts = dict(stack_spmv_launches=cuda_spmv.launches,
-                      diva_apply_launches=cuda_spmv.diva_launches,
-                      heat_columns_launches=cuda_heat.launches)
-    finally:
-        ssadiva.gmres = gmres_inner
-        ModelRegion.run_to = run_to_inner
+    with counted_gmres() as gm:
+        gm.update(first_calls=None, first_its=None)
+
+        def run_to_marked(self, *a, **kw):
+            # the GMRES work before the first run_to is the initial solve
+            if gm["first_its"] is None:
+                gm["first_its"], gm["first_calls"] = gm["its"], gm["calls"]
+            return run_to_inner(self, *a, **kw)
+        ModelRegion.run_to = run_to_marked
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                regions = program.main([cfg, "--output-dir", out_dir])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts = read_counts()
+        finally:
+            ModelRegion.run_to = run_to_inner
+        last = {k: gm[k] for k in ("A", "b", "x0", "x", "kw")}
     region = regions["ANT"]
     state = region.state
     with open(os.path.join(out_dir, "resource_tracking.jsonl")) as f:
@@ -1170,6 +1200,424 @@ def precond_solves(region, last):
          f"{converged(program_restart)} converged, expected "
          f"{MP_CONVERGE_AT_RESTART}")
     assert set(MP_PRECONDS) <= set(converged(MP_PRECOND_RESTART)), out
+    return out
+
+
+@contextlib.contextmanager
+def counted_gmres():
+    """Within the block, the dict it yields counts the stress-balance
+    GMRES calls ("calls") and iterations ("its") and holds the last
+    call's operator, operands and options ("A", "b", "x0", "x", "kw")."""
+    from ufemism2_tpu_torch.core.ice import ssadiva
+    gm = {"calls": 0, "its": 0}
+    inner = ssadiva.gmres
+
+    def counted(A, b, x0=None, M=None, **kw):
+        res = inner(A, b, x0=x0, M=M, **kw)
+        gm["calls"] += 1
+        gm["its"] += res.n_iter
+        gm.update(A=A, b=b, x0=x0, x=res.x, kw=kw)
+        return res
+    ssadiva.gmres = counted
+    try:
+        yield gm
+    finally:
+        ssadiva.gmres = inner
+
+
+def zero_counts():
+    from ufemism2_tpu_torch.ops import cuda_heat, cuda_spmv
+    cuda_spmv.launches = 0
+    cuda_spmv.diva_launches = 0
+    cuda_heat.launches = 0
+
+
+def read_counts():
+    from ufemism2_tpu_torch.ops import cuda_heat, cuda_spmv
+    return dict(stack_spmv_launches=cuda_spmv.launches,
+                diva_apply_launches=cuda_spmv.diva_launches,
+                heat_columns_launches=cuda_heat.launches)
+
+
+def ell_widths(md):
+    """ELL width K of every operator of a MeshData."""
+    from ufemism2_tpu_torch.ops.sparse import EllStack
+    return {k: v.K for k, v in vars(md).items() if isinstance(v, EllStack)}
+
+
+def time_first_step_after_remesh(region, rec):
+    """Make the region's next update_mesh time the first ice step on the
+    new mesh (its cold solves) into rec["first_step_s"]."""
+    update = region.update_mesh
+
+    def update_then_time():
+        update()
+        step = region.pc_step
+
+        def first_step(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(*a, **kw)
+            torch.cuda.synchronize()
+            rec.append(time.perf_counter() - t)
+            region.pc_step = step
+            return out
+        region.pc_step = first_step
+    region.update_mesh = update_then_time
+
+
+def step_n(region, n):
+    """At least n more ice steps, one run_to per prediction window."""
+    n0 = region.n_dt_ice
+    while region.n_dt_ice < n0 + n:
+        region.run_to(region.state.t_Hi_next + 1e-6)
+
+
+def remesh_phase(mesh):
+    """FULL_REMESH at full width on the card in f32: the initial solve,
+    the start-up transient and the 20 -> 60 yr window, across the first
+    mesh-fitness check at 50 yr. If the check does not update the mesh,
+    update_mesh() is called at the window's end; either way at least
+    RM_STEPS_AFTER ice steps run on the new mesh. Then diva_apply on the
+    last operator apply of the remeshed mesh and stack_spmv on its
+    five-operator stack, against their plain versions, with their ELL
+    widths."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.main.region import ModelRegion
+    C = Config(**FULL_REMESH)
+    first = []
+    with counted_gmres() as gm:
+        zero_counts()
+        t0 = time.perf_counter()
+        region = ModelRegion(C, "ANT", mesh=mesh)
+        time_first_step_after_remesh(region, first)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_its = gm["its"]
+        region.run_to(T_WARM)
+        torch.cuda.synchronize()
+        n_warm, axb_warm = region.n_dt_ice, region.state.n_Axb_its
+        t_warm = region.time
+        t0 = time.perf_counter()
+        region.run_to(T_WARM + WINDOW)
+        forced = region.n_mesh_updates == 0
+        if forced:
+            time_first_step_after_remesh(region, first)
+            region.update_mesh()
+        n_at_remesh = region.n_dt_ice if forced else None
+        step_n(region, RM_STEPS_AFTER if forced else 0)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        last = {"A": gm["A"], "x": gm["x"]}
+    state = region.state
+    check_state(state, "cuda")
+    w_axb = state.n_Axb_its - axb_warm
+    years = region.time - t_warm
+    timing = dict(region.remesh_timings[0], first_step_s=first[0])
+    out = dict(
+        nV_before=mesh.nV, nTri_before=mesh.nTri,
+        nV_after=region.mesh.nV, nTri_after=region.mesh.nTri,
+        n_mesh_updates=region.n_mesh_updates, forced=forced,
+        remesh_s=timing, remesh_total_s=sum(timing.values()),
+        initial_solve_s=init_s, initial_gmres_its=init_its,
+        window_yr=years, window_steps=region.n_dt_ice - n_warm,
+        wall_s=run_s, sim_yr_per_hr=years / run_s * 3600.0,
+        n_Axb_its=w_axb, ms_per_krylov_it=run_s * 1e3 / max(w_axb, 1),
+        x_GL_km=find_x_GL(region.mesh, state.TAF) / 1e3,
+        ice_volume_m3=float((state.Hi.double()
+                             * region.md.A.double()).sum()),
+        ell_widths=ell_widths(region.md), diva_K=last["A"].stack.K,
+        gmres_its=gm["its"], gmres_calls=gm["calls"], **counts)
+    say("remesh", **out)
+    assert region.n_mesh_updates >= 1 and region.md.device.type == "cuda"
+    assert not forced or region.n_dt_ice >= n_at_remesh + RM_STEPS_AFTER
+    assert region.md.nV == region.mesh.nV != mesh.nV
+    assert counts["diva_apply_launches"] == gm["its"] + gm["calls"] > 0, \
+        "the remesh path did not go through diva_apply"
+    assert counts["stack_spmv_launches"] > 16 * gm["calls"], \
+        "the remesh path did not go through stack_spmv"
+    # the kernels on the remeshed mesh: the last operator apply, and the
+    # five-operator stack at the main path's precision
+    ops = region.mesh.operators
+    m2 = [ops.M2_ddx_b_b, ops.M2_ddy_b_b, ops.M2_d2dx2_b_b,
+          ops.M2_d2dxdy_b_b, ops.M2_d2dy2_b_b]
+    diva = diva_check("diva_apply_remesh_last_apply", last["A"],
+                      torch.cat(last["x"]), [m.tocsr() for m in m2])
+    rng = np.random.default_rng(6)
+    stack = kernel_case(
+        "M2_stack_5ops_d2_remeshed_float32_bf16x", m2,
+        rng.standard_normal((region.mesh.nTri, 2)) * 300.0, torch.float32,
+        True)
+    assert ((region.mesh.nV, region.mesh.nTri), w_axb) \
+        == (RM_MESH, RM_WINDOW_AXB_ITS) \
+        and abs(out["x_GL_km"] - RM_X_GL_KM) < 0.01, \
+        (f"the f32 remesh trajectory moved: mesh "
+         f"{(region.mesh.nV, region.mesh.nTri)}, {w_axb} Krylov "
+         f"iterations in the window, x_GL {out['x_GL_km']:.3f} km "
+         f"(expected {RM_MESH}, {RM_WINDOW_AXB_ITS}, {RM_X_GL_KM})")
+    return out, diva, stack
+
+
+def small_remesh_phase(workdir, mesh_s):
+    """SMALL_REMESH in f64 with one forced update_mesh() after four ice
+    steps, on the card (kernels) and on the CPU (plain versions), with
+    outputs: both devices build the same new mesh (equal nV and nTri,
+    vertices within 1e-6 m) and then take the same steps, viscosity and
+    Krylov iterations, with fields within small_phase's gaps; the mesh
+    output reaches generation 00002."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.main.region import ModelRegion
+    C = Config(**SMALL_REMESH)
+    runs, seconds = {}, {}
+    zero_counts()
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        r = ModelRegion(C, "ANT", mesh=mesh_s, device=dev,
+                        output_dir=os.path.join(workdir, f"remesh_{dev}"))
+        for t in (0.15, 0.35):
+            r.run_to(t)
+        r.update_mesh()
+        n_at, axb_at = r.n_dt_ice, r.state.n_Axb_its
+        visc_at = r.state.n_visc_its
+        for t in (0.45, 0.55, 0.7):
+            r.run_to(t)
+        r.write_output()
+        runs[dev] = (r, n_at, axb_at, visc_at)
+        seconds[dev] = time.perf_counter() - t0
+    counts = read_counts()
+    (rc, nc, ac, vc), (rg, ng, ag, vg) = runs["cpu"], runs["cuda"]
+    sc, sg = rc.state, rg.state
+    gaps = {}
+    for name in ("Hi", "u_vav_b", "v_vav_b"):
+        a, b = getattr(sc, name), getattr(sg, name).cpu()
+        gaps[name] = float((a - b).abs().max() / a.abs().max())
+    same_mesh = (rc.mesh.nV, rc.mesh.nTri) == (rg.mesh.nV, rg.mesh.nTri)
+    v_gap = float(np.abs(rc.mesh.V - rg.mesh.V).max()) if same_mesh \
+        else None
+    gens = {dev: sorted(p for p in os.listdir(
+        os.path.join(workdir, f"remesh_{dev}")) if p.startswith(
+        "main_output_ANT_0")) for dev in runs}
+    out = dict(nV_before=mesh_s.nV, nV_after=[rc.mesh.nV, rg.mesh.nV],
+               nTri_after=[rc.mesh.nTri, rg.mesh.nTri], V_gap_m=v_gap,
+               steps_after=[rc.n_dt_ice - nc, rg.n_dt_ice - ng],
+               n_visc_its_after=[sc.n_visc_its - vc, sg.n_visc_its - vg],
+               n_Axb_its_after=[sc.n_Axb_its - ac, sg.n_Axb_its - ag],
+               rel_gap=gaps, mesh_output_files=gens["cuda"],
+               remesh_s=rg.remesh_timings[0], seconds_cpu=seconds["cpu"],
+               seconds_card=seconds["cuda"], **counts)
+    say("small_remesh", **out)
+    assert same_mesh and v_gap <= 1e-6, out
+    assert rc.n_dt_ice - nc == rg.n_dt_ice - ng >= 3
+    assert sc.n_visc_its - vc == sg.n_visc_its - vg
+    assert sc.n_Axb_its - ac == sg.n_Axb_its - ag
+    assert gaps["Hi"] < 1e-6 and gaps["u_vav_b"] < 1e-5 \
+        and gaps["v_vav_b"] < 1e-5, gaps
+    for dev in runs:
+        assert gens[dev] == ["main_output_ANT_00001.nc",
+                             "main_output_ANT_00002.nc"], gens
+    assert counts["diva_apply_launches"] > 0 \
+        and counts["stack_spmv_launches"] > 0
+    return out
+
+
+def resume_region(C, path, device, out_dir):
+    """A region on the mesh of the restart at `path`, resumed from it with
+    the spin-up's flow-factor scale (the gate's resume of the JAX package,
+    ufemism2_tpu/validation/integrated_tests.py:389-420)."""
+    from ufemism2_tpu_torch.io.output_files import mesh_from_restart
+    from ufemism2_tpu_torch.main.region import ModelRegion
+    r = ModelRegion(C, "ANT", mesh=mesh_from_restart(path, C), device=device,
+                    output_dir=out_dir)
+    e = r.md.extras["glen_A_scale"]
+    e.arr = torch.tensor(MP_GLEN_A_SCALE, dtype=e.arr.dtype,
+                         device=e.arr.device)
+    r.resume_from_restart(path)
+    return r
+
+
+def read_outputs(out_dir, n_events):
+    """Every NetCDF file of a run read back through the port's ncio (no
+    h5py): finite Hi, one time entry per output event."""
+    from ufemism2_tpu_torch.io.ncio import NCFile
+    names = sorted(n for n in os.listdir(out_dir) if n.endswith(".nc"))
+    frames = 0
+    for n in names:
+        nc = NCFile(os.path.join(out_dir, n))
+        if n.startswith("main_output_ANT_0"):
+            assert np.isfinite(nc.read("Hi")).all(), n
+            frames += nc.dims()["time"]
+        if n.startswith("scalar_output"):
+            assert nc.dims()["time"] == n_events, (n, nc.dims())
+    assert frames == n_events, (names, frames, n_events)
+    return names
+
+
+RESUME_FIELDS = ("Hi", "u_vav_b", "v_vav_b")
+
+
+def resume_snapshot(r):
+    """Steps, counts and fields (f64, on the host) of a resumed region."""
+    return dict(steps=r.n_dt_ice, n_visc_its=r.state.n_visc_its,
+                n_Axb_its=r.state.n_Axb_its,
+                **{k: getattr(r.state, k).double().cpu()
+                   for k in RESUME_FIELDS})
+
+
+def cpu_resume_snapshot(out_dir, t_cmp, snapshot_path):
+    """The f64 resume of MP_RESTART on the CPU (plain versions) to t_cmp,
+    its snapshot saved to snapshot_path; mismipplus_resume_phase runs this
+    in a process of its own."""
+    from ufemism2_tpu_torch.config import Config
+    # half the cores: the card's runs go on beside this process
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    C = Config(**dict(MP_RESUME, tpu_precision="f64"))
+    t0 = time.perf_counter()
+    r = resume_region(C, MP_RESTART, "cpu", out_dir)
+    n0, axb0 = r.n_dt_ice, r.state.n_Axb_its
+    with contextlib.redirect_stdout(sys.stderr):
+        r.run_to(float(t_cmp))
+    snap = resume_snapshot(r)
+    snap["run"] = dict(seconds=time.perf_counter() - t0,
+                       steps=r.n_dt_ice - n0,
+                       n_Axb_its=r.state.n_Axb_its - axb0,
+                       outputs=read_outputs(out_dir, len(r.scalars_history)))
+    torch.save(snap, snapshot_path)
+
+
+def mismipplus_resume_phase(workdir):
+    """The JAX package's MISMIP+ 5 km spin-up state resumed on the card
+    (MP_RESUME: one coupling interval through run_to, outputs, restarts
+    and remeshing on), in f32 and in f64. The f64 run is held to the same
+    run on the CPU over its first MP_CMP_YR model years (equal steps and
+    counts, fields within small_phase's gaps), and to a fresh region
+    resumed from the port's own restart written halfway (equal steps and
+    counts, fields within 1e-12 at the end). Beside it a third f64 run
+    whose thickness starts 1e-15 (relative) away measures how far one
+    rounding carries by the halfway point on this state. Every output file
+    is read back through the port's ncio, without h5py."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.io.ncio import NCFile
+    from ufemism2_tpu_torch.main import program
+    t_start, t_end = MP_RESUME["start_time_of_run"], \
+        MP_RESUME["end_time_of_run"]
+    t_cmp, t_mid = t_start + MP_CMP_YR, 0.5 * (t_start + t_end)
+
+    def gaps(a, b):
+        return {k: float((a[k] - b[k]).abs().max() / b[k].abs().max())
+                for k in RESUME_FIELDS}
+
+    res, snaps = {}, {}
+    # the CPU's run goes in a process of its own, beside the card's runs
+    cpu_out = os.path.join(workdir, "resume_f64_cpu.pt")
+    cpu = subprocess.Popen(
+        [sys.executable, "-c", "import importlib.util, sys; "
+         "spec = importlib.util.spec_from_file_location('chip_smoke', "
+         "sys.argv[1]); m = importlib.util.module_from_spec(spec); "
+         "spec.loader.exec_module(m); m.cpu_resume_snapshot(*sys.argv[2:])",
+         os.path.abspath(__file__), os.path.join(workdir, "resume_f64_cpu"),
+         repr(t_cmp), cpu_out], stdout=sys.stderr, stderr=sys.stderr)
+    try:
+        zero_counts()
+        for tag, prec in (("f32", "f32"), ("f64", "f64"),
+                          ("f64_perturbed", "f64")):
+            C = Config(**dict(MP_RESUME, tpu_precision=prec))
+            out_dir = os.path.join(workdir, f"resume_{tag}")
+            r = resume_region(C, MP_RESTART, "cuda", out_dir)
+            if tag == "f64_perturbed":
+                s = r.state
+                r.state = s.replace(Hi_prev=s.Hi_prev * (1.0 + 1e-15),
+                                    Hi_next=s.Hi_next * (1.0 + 1e-15))
+            n0, axb0 = r.n_dt_ice, r.state.n_Axb_its
+            visc0 = r.state.n_visc_its
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                if tag == "f32":
+                    r.run_to(t_end)
+                else:
+                    r.run_to(t_cmp)
+                    snaps[tag] = resume_snapshot(r)
+                    r.run_to(t_mid)
+                    snaps[tag + "_mid"] = resume_snapshot(r)
+                    if tag == "f64":
+                        shutil.copy(
+                            os.path.join(out_dir, "restart_ANT_00001.nc"),
+                            os.path.join(workdir, "restart_mid.nc"))
+                        r.run_to(t_end)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            s = r.state
+            axb = s.n_Axb_its - axb0
+            x_GL = program.mismipplus_x_GL(C, r)
+            res[tag] = dict(
+                region=r, t_end=r.time, steps=r.n_dt_ice - n0,
+                n_visc_its=s.n_visc_its - visc0, n_Axb_its=axb, wall_s=run_s,
+                sim_yr_per_hr=(r.time - t_start) / run_s * 3600.0,
+                ms_per_krylov_it=run_s * 1e3 / max(axb, 1),
+                x_GL_km=None if x_GL is None else x_GL / 1e3,
+                ice_volume_m3=float((s.Hi.double() * r.md.A.double()).sum()),
+                n_mesh_updates=r.n_mesh_updates, nV=r.mesh.nV,
+                outputs=read_outputs(out_dir, len(r.scalars_history)))
+        # a fresh region resumed from the f64 card run's halfway restart
+        C = Config(**dict(MP_RESUME, tpu_precision="f64"))
+        rr = resume_region(C, os.path.join(workdir, "restart_mid.nc"), "cuda",
+                           os.path.join(workdir, "resume_from_mid"))
+        n0 = rr.n_dt_ice
+        assert abs(rr.time - t_mid) < 1e-9
+        with contextlib.redirect_stdout(sys.stderr):
+            rr.run_to(t_end)
+        counts = read_counts()
+        t0 = time.perf_counter()
+        assert cpu.wait(timeout=900) == 0, "the CPU's resume run failed"
+        cpu_wait_s = time.perf_counter() - t0
+    finally:
+        if cpu.poll() is None:          # the card's runs failed first
+            cpu.kill()
+            cpu.wait()
+    snaps["f64_cpu"] = torch.load(cpu_out)
+    cpu_run = snaps["f64_cpu"].pop("run")
+    ru = res["f64"]["region"]
+    mid_restart = NCFile(os.path.join(workdir, "restart_mid.nc"))
+    assert abs(float(mid_restart.read("time")[0]) - t_mid) < 1e-9
+    gaps_cpu = gaps(snaps["f64_cpu"], snaps["f64"])
+    gaps_resumed = gaps(resume_snapshot(rr), resume_snapshot(ru))
+    gaps_perturbed = gaps(snaps["f64_perturbed_mid"], snaps["f64_mid"])
+    printed = {tag: {k: v for k, v in d.items() if k != "region"}
+               for tag, d in res.items()}
+    out = dict(restart=os.path.relpath(MP_RESTART), nV=res["f32"]["nV"],
+               runs=printed,
+               card_cpu_f64=dict(t=t_cmp, **{
+                   k: [snaps[t][k] for t in ("f64_cpu", "f64")]
+                   for k in ("steps", "n_visc_its", "n_Axb_its")},
+                   rel_gap=gaps_cpu, cpu_run=cpu_run,
+                   cpu_wait_s=cpu_wait_s),
+               perturbed_1e15_rel_gap_at_mid=gaps_perturbed,
+               resumed_from_mid=dict(
+                   steps=rr.n_dt_ice - n0, n_dt_ice=[rr.n_dt_ice,
+                                                     ru.n_dt_ice],
+                   n_Axb_its=[rr.state.n_Axb_its, ru.state.n_Axb_its],
+                   rel_gap=gaps_resumed),
+               h5py_available=importlib.util.find_spec("h5py") is not None,
+               **counts)
+    say("mismipplus_resume", **out)
+    for d in res.values():
+        check_state(d["region"].state, "cuda")
+        assert d["steps"] >= 2 and d["ice_volume_m3"] > 0.0
+    assert res["f32"]["region"].state.Hi.dtype == torch.float32
+    assert abs(res["f64"]["t_end"] - t_end) < 1e-9 \
+        and abs(res["f32"]["t_end"] - t_end) < 1e-9
+    a, b = snaps["f64_cpu"], snaps["f64"]
+    assert [a[k] for k in ("steps", "n_visc_its", "n_Axb_its")] \
+        == [b[k] for k in ("steps", "n_visc_its", "n_Axb_its")], out
+    assert gaps_cpu["Hi"] < 1e-6 and gaps_cpu["u_vav_b"] < 1e-5 \
+        and gaps_cpu["v_vav_b"] < 1e-5, gaps_cpu
+    assert rr.n_dt_ice == ru.n_dt_ice and rr.n_dt_ice > n0
+    assert rr.state.n_visc_its == ru.state.n_visc_its
+    assert rr.state.n_Axb_its == ru.state.n_Axb_its
+    assert max(gaps_resumed.values()) <= 1e-12, gaps_resumed
+    assert counts["diva_apply_launches"] > 0 \
+        and counts["stack_spmv_launches"] > 0
     return out
 
 
@@ -1409,7 +1857,7 @@ def main():
 
     # -- 8. thermodynamics path at full width, 9. Halfar dome (SIA) --------
     th, hot_heat = thermo_path(Config(**FULL_THERMO), mesh)
-    _, halfar_heat = halfar_phase()
+    halfar, halfar_heat = halfar_phase()
     heat_cases += [hot_heat, halfar_heat]
 
     # -- 10. MISMIP+ through the program's entry point, 11. preconditioners
@@ -1420,6 +1868,15 @@ def main():
                                  torch.cat(mp_last["x"])))
     mp_precond = precond_solves(mp_region, mp_last)
 
+    # -- 12. remeshing at full width, 13. small_remesh, 14. the MISMIP+
+    # spin-up resumed
+    rm, rm_diva, rm_stack = remesh_phase(mesh)
+    diva_cases.append(rm_diva)
+    cases.append(rm_stack)
+    with tempfile.TemporaryDirectory() as workdir:
+        small_remesh_phase(workdir, mesh_s_small)
+        mpr = mismipplus_resume_phase(workdir)
+
     kernels = [{
         "name": "stack_spmv", "route": "cuda",
         "source": "ufemism2_tpu_torch/csrc/stack_spmv.cu",
@@ -1427,7 +1884,10 @@ def main():
         "launches": main["stack_spmv_launches"],
         "launches_by_path": {"main_path": main["stack_spmv_launches"],
                              "thermo_path": th["stack_spmv_launches"],
-                             "mismipplus": mp["stack_spmv_launches"]},
+                             "mismipplus": mp["stack_spmv_launches"],
+                             "remesh": rm["stack_spmv_launches"],
+                             "mismipplus_resume":
+                                 mpr["stack_spmv_launches"]},
         "max_abs_err": hot["max_abs_err"], "ms": hot["ms"],
         "device_ms": hot["device_ms"],
         "plain_ms": hot["plain_ms"], "bound_ms": hot["bound_ms"],
@@ -1441,7 +1901,10 @@ def main():
         "launches": main["diva_apply_launches"],
         "launches_by_path": {"main_path": main["diva_apply_launches"],
                              "thermo_path": th["diva_apply_launches"],
-                             "mismipplus": mp["diva_apply_launches"]},
+                             "mismipplus": mp["diva_apply_launches"],
+                             "remesh": rm["diva_apply_launches"],
+                             "mismipplus_resume":
+                                 mpr["diva_apply_launches"]},
         "max_abs_err": hot_diva["max_abs_err"], "ms": hot_diva["ms"],
         "device_ms": hot_diva["device_ms"],
         "plain_ms": hot_diva["plain_ms"], "bound_ms": hot_diva["bound_ms"],
@@ -1454,6 +1917,11 @@ def main():
         "replaces_kind": "XLA-lowered code (make_heat_solver + "
                          "ops/tridiag.py thomas_batched), no pallas_call",
         "launches": th["heat_columns_launches"],
+        "launches_by_path": {"thermo_path": th["heat_columns_launches"],
+                             "halfar": halfar["heat_columns_launches"],
+                             "remesh": rm["heat_columns_launches"],
+                             "mismipplus_resume":
+                                 mpr["heat_columns_launches"]},
         "max_abs_err": hot_heat["max_abs_err"], "ms": hot_heat["ms"],
         "device_ms": hot_heat["device_ms"],
         "plain_ms": hot_heat["plain_ms"], "bound_ms": hot_heat["bound_ms"],

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: no file of `ufemism2_tpu_torch/`, nor
-`chip_smoke.py`, imports jax, chex or anything of the JAX package.
+`chip_smoke.py`, imports jax, chex or anything of the JAX package; and
+h5py, which the card's machine lacks, is imported only by the reader of
+NetCDF4 (HDF5) files, `io/ncio.py NCFile._read_hdf5`, when it opens one.
 
 An AST walk, not a look at `sys.modules`: the test environment preloads
 jax into every process."""
@@ -38,6 +40,40 @@ def test_no_jax_import(path):
     bad = [(name, line) for name, line in _imported_roots(path)
            if name in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _h5py_imports(path):
+    """(enclosing function, line) of every import of h5py in `path`."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = []
+
+    def walk(node, func):
+        for child in ast.iter_child_nodes(node):
+            f = child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            if isinstance(child, ast.Import) and any(
+                    a.name.split(".")[0] == "h5py" for a in child.names):
+                out.append((func, child.lineno))
+            elif isinstance(child, ast.ImportFrom) and child.module \
+                    and child.module.split(".")[0] == "h5py":
+                out.append((func, child.lineno))
+            walk(child, f)
+    walk(tree, None)
+    return out
+
+
+HDF5_READER = ("ufemism2_tpu_torch/io/ncio.py", "_read_hdf5")
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_h5py_only_in_the_hdf5_reader(path):
+    rel = str(path.relative_to(ROOT))
+    found = _h5py_imports(path)
+    if rel == HDF5_READER[0]:
+        assert found and all(f == HDF5_READER[1] for f, _ in found), found
+    else:
+        assert not found, f"{rel} imports h5py at {found}"
 
 
 def test_port_imports_every_module():

@@ -6,8 +6,8 @@ intervals, in f64.
 
 The final scalars agree to 1e-10 (the trajectories are the same f64
 arithmetic, summation order apart; measured 1e-14); the config copy, the
-manifest's keys and the resource-tracking records are those the JAX
-package writes."""
+manifest's keys, the resource-tracking records and the names of the
+region's NetCDF files are those the JAX package writes."""
 
 import json
 
@@ -105,8 +105,15 @@ def test_output_files_as_jax(runs):
         assert sorted(a) == sorted(b) == ["routines", "t"]
         assert a["t"] == pytest.approx(b["t"], rel=1e-12)
         assert "run_model_region" in a["routines"]
-    # no NetCDF output yet
-    assert not list(ot.glob("**/*.nc"))
+    # the region's NetCDF files, as the JAX package names them, in
+    # classic format (readable without h5py)
+    names = sorted(p.relative_to(ot).as_posix() for p in ot.glob("**/*.nc"))
+    assert names == sorted(p.relative_to(oj).as_posix()
+                           for p in oj.glob("**/*.nc")) == [
+        "ANT/main_output_ANT_00001.nc", "ANT/main_output_ANT_grid.nc",
+        "ANT/restart_ANT_00001.nc", "ANT/scalar_output_ANT_00001.nc"]
+    for n in names:
+        assert (ot / n).read_bytes()[:4] == b"CDF\x02", n
 
 
 def test_default_device_and_other_commands(runs, tmp_path):

@@ -127,11 +127,12 @@ def test_default_device_is_the_card(env):
     (dict(choice_thermo_model="3D_heat_equation",
           choice_geothermal_heat_flux="read_from_file"),
      "choice_geothermal_heat_flux"),
-    (dict(allow_mesh_updates=True), "allow_mesh_updates"),
+    (dict(transects_ANT="westeast"), "transects_ANT"),
     (dict(choice_SMB_model_ANT="IMAU-ITM"), "choice_SMB_model"),
     (dict(choice_BMB_model_ANT="laddie_py"), "choice_BMB_model"),
     (dict(choice_GIA_model="ELRA"), "choice_GIA_model"),
-    (dict(choice_sealevel_model="prescribed"), "choice_sealevel_model"),
+    (dict(choice_regions_of_interest="PineIsland"),
+     "choice_regions_of_interest"),
     (dict(tpu_n_devices=4), "tpu_n_devices"),
 ])
 def test_unported_choices_raise_by_name(env, over, word):

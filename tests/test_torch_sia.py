@@ -61,7 +61,7 @@ HALFAR = dict(
     start_time_of_run=0.0, end_time_of_run=200.0,
     nit_Lloyds_algorithm=2,
     refgeo_Hi_min=2.0,
-    allow_mesh_updates=False,       # remeshing is not ported yet
+    allow_mesh_updates=False,       # a fixed mesh, as tests/test_halfar.py
 )
 HALFAR_T_ENDS = (0.05, 0.15, 0.3, 0.6, 1.2)
 

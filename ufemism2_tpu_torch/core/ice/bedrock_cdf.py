@@ -67,6 +67,41 @@ def _edge_side(px, py, s, e, o):
     return np.where(above, cz_p < 0, cz_p > 0), cz_p == 0, above
 
 
+def _claim(P, tid, flat, px, py, own_vertex, own_left, own_right):
+    """Record, for candidate pairs (triangle tid, point flat at (px, py)),
+    which triangles contain their point, under the tie rule of
+    `find_containing_triangles`; updates the three owner arrays."""
+    a, b, c = P[tid, 0], P[tid, 1], P[tid, 2]
+    hit = np.ones(len(tid), bool)
+    left = np.ones(len(tid), bool)
+    for s, e, o in ((a, b, c), (b, c, a), (c, a, b)):
+        inside, on, above = _edge_side(px, py, s, e, o)
+        hit &= inside | on
+        left &= inside | above
+    at_vertex = ((px == a[:, 0]) & (py == a[:, 1])) \
+        | ((px == b[:, 0]) & (py == b[:, 1])) \
+        | ((px == c[:, 0]) & (py == c[:, 1]))
+    m = hit & at_vertex
+    np.minimum.at(own_vertex, flat[m], tid[m])
+    m = hit & ~at_vertex & left
+    own_left[flat[m]] = tid[m]
+    m = hit & ~at_vertex & ~left
+    own_right[flat[m]] = tid[m]
+
+
+_NONE = np.iinfo(np.int64).max
+
+
+def _owners(n):
+    return (np.full(n, _NONE, np.int64), -np.ones(n, np.int64),
+            -np.ones(n, np.int64))
+
+
+def _owner(own_vertex, own_left, own_right):
+    owner = np.where(own_left >= 0, own_left, own_right)
+    return np.where(own_vertex != _NONE, own_vertex, owner)
+
+
 def find_containing_triangles(V, Tri, x_grid, y_grid, chunk=4096):
     """Index of the triangle containing each point of the regular grid
     (x_grid [nx], y_grid [ny]; points in 'ij' order, flattened), -1 where
@@ -82,10 +117,7 @@ def find_containing_triangles(V, Tri, x_grid, y_grid, chunk=4096):
     x_grid = np.asarray(x_grid, np.float64)
     y_grid = np.asarray(y_grid, np.float64)
     nx, ny = len(x_grid), len(y_grid)
-    none = np.iinfo(np.int64).max
-    own_vertex = np.full(nx * ny, none, np.int64)     # lowest index wins
-    own_left = -np.ones(nx * ny, np.int64)    # interior, or left of its edge
-    own_right = -np.ones(nx * ny, np.int64)   # on an edge, triangle right
+    owners = _owners(nx * ny)
     P = V[Tri]                                        # [nTri,3,2]
     i0 = np.searchsorted(x_grid, P[:, :, 0].min(axis=1), side="left")
     i1 = np.searchsorted(x_grid, P[:, :, 0].max(axis=1), side="right")
@@ -103,26 +135,39 @@ def find_containing_triangles(V, Tri, x_grid, y_grid, chunk=4096):
         within = np.arange(nt.sum()) - np.repeat(np.cumsum(nt) - nt, nt)
         ii = i0[tid] + within // nj[tid]
         jj = j0[tid] + within % nj[tid]
-        px, py = x_grid[ii], y_grid[jj]
-        a, b, c = P[tid, 0], P[tid, 1], P[tid, 2]
-        hit = np.ones(len(tid), bool)
-        left = np.ones(len(tid), bool)
-        for s, e, o in ((a, b, c), (b, c, a), (c, a, b)):
-            inside, on, above = _edge_side(px, py, s, e, o)
-            hit &= inside | on
-            left &= inside | above
-        at_vertex = ((px == a[:, 0]) & (py == a[:, 1])) \
-            | ((px == b[:, 0]) & (py == b[:, 1])) \
-            | ((px == c[:, 0]) & (py == c[:, 1]))
-        flat = ii * ny + jj
-        m = hit & at_vertex
-        np.minimum.at(own_vertex, flat[m], tid[m])
-        m = hit & ~at_vertex & left
-        own_left[flat[m]] = tid[m]
-        m = hit & ~at_vertex & ~left
-        own_right[flat[m]] = tid[m]
-    owner = np.where(own_left >= 0, own_left, own_right)
-    return np.where(own_vertex != none, own_vertex, owner)
+        _claim(P, tid, ii * ny + jj, x_grid[ii], y_grid[jj], *owners)
+    return _owner(*owners)
+
+
+def find_containing_triangles_of_points(V, Tri, pts, chunk=4096):
+    """`find_containing_triangles` for arbitrary points [n, 2]: the same
+    tie rule, each triangle testing the points inside its bounding box
+    (found through a KD-tree of the points)."""
+    from scipy.spatial import cKDTree
+    pts = np.asarray(pts, np.float64)
+    owners = _owners(len(pts))
+    if len(pts) == 0:
+        return _owner(*owners)
+    P = V[Tri]
+    lo, hi = P.min(axis=1), P.max(axis=1)
+    ctr = 0.5 * (lo + hi)
+    rad = 0.5 * np.hypot(hi[:, 0] - lo[:, 0], hi[:, 1] - lo[:, 1])
+    rad = rad * (1.0 + 1e-9) + 1e-9 * np.abs(ctr).max()
+    tree = cKDTree(pts)
+    for t0 in range(0, len(Tri), chunk):
+        ts = np.arange(t0, min(t0 + chunk, len(Tri)))
+        lists = tree.query_ball_point(ctr[ts], rad[ts])
+        nt = np.array([len(l) for l in lists])
+        if nt.sum() == 0:
+            continue
+        tid = np.repeat(ts, nt)
+        flat = np.concatenate([np.asarray(l, np.int64) for l in lists])
+        px, py = pts[flat, 0], pts[flat, 1]
+        box = (px >= lo[tid, 0]) & (px <= hi[tid, 0]) \
+            & (py >= lo[tid, 1]) & (py <= hi[tid, 1])
+        tid, flat, px, py = tid[box], flat[box], px[box], py[box]
+        _claim(P, tid, flat, px, py, *owners)
+    return _owner(*owners)
 
 
 def calc_bedrock_cdfs(mesh, x_grid, y_grid, Hb_grid, nbins: int):

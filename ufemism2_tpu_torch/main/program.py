@@ -9,10 +9,12 @@ Usage:
     python -m ufemism2_tpu_torch unit_tests
 
 The run writes a copy of the config, run_manifest.json and
-resource_tracking.jsonl into the output directory; the regions' scalars
-are kept in each region's `scalars_history` and the final ones printed.
-The NetCDF field, scalar and restart files are not written yet (ROADMAP
-A.18). The run is on the card unless --device names another device.
+resource_tracking.jsonl into the output directory, and each region's
+NetCDF files (main_output_<R>_0000N.nc per mesh generation,
+main_output_<R>_grid.nc, scalar_output_<R>_00001.nc,
+restart_<R>_00001.nc) into <output dir>/<R>/; the regions' scalars are
+also kept in each region's `scalars_history` and the final ones printed.
+The run is on the card unless --device names another device.
 """
 
 from __future__ import annotations
@@ -120,7 +122,8 @@ def run_model(config_path: str, output_dir: str | None = None,
     for name in REGIONS:
         if getattr(C, f"do_{name}"):
             happy("Initialising model region {} ...", name)
-            regions[name] = ModelRegion(C, name, device=device)
+            regions[name] = ModelRegion(C, name, output_dir=str(out / name),
+                                        device=device)
 
     if not regions:
         print("No regions enabled in config (do_NAM/EAS/GRL/ANT).")

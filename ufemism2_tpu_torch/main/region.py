@@ -4,17 +4,19 @@ Re-design of src/UFEMISM/main/UFEMISM_main_model.f90: the event-driven
 component scheduler (each component keeps its own t_next;
 advance_region_time_to_time_of_next_action, :354-435) runs on the host;
 the per-step field work (PC ice dynamics, component models) runs on one
-device. Mesh building is a host-side event.
+device. Mesh building, remapping and file output are host-side events.
 
-This slice covers a fixed mesh built from an idealised geometry, the
+This slice covers a mesh built from an idealised geometry and the
+adaptive mesh updates that rebuild it from the evolving geometry, the
 stress balances none/SIA/SSA/DIVA/SIA+SSA (with the ocean-pressure
 calving front), uniform SMB/BMB/LMB/AMB, the 'none' climate, the 3-D heat
 equation with a uniform geothermal flux (fused into the ice-step loop as
-the reference's make_pc_multistep does), a fixed sea level, the MISMIP+
-flow-factor tuning slot and the scalar half of the output (appended to
-`scalars_history`). Every other choice raises NotImplementedError at
-construction, naming the choice; so does an output directory, since the
-field and NetCDF writers are not ported (ROADMAP A.18).
+the reference's make_pc_multistep does), a fixed or prescribed sea level,
+the MISMIP+ flow-factor tuning slot, the output (the scalars in
+`scalars_history` and, with an output directory, the NetCDF mesh, grid,
+scalar, ISMIP and restart files of io/), restarts and the checksum log.
+Every other choice raises NotImplementedError at construction, naming
+the choice.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from __future__ import annotations
 import os
 import time as _time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -29,7 +32,9 @@ import torch
 
 from ..config import Config
 from ..core.mesh_data import build_mesh_data, EField
-from ..core.ice.state import init_ice_state
+from ..core.fields import (host_arrays, device_arrays, remap_leaves,
+                           assemble_remapped_state)
+from ..core.ice.state import init_ice_state, PCState
 from ..core.ice.pc import (make_pc_step, make_solve_stress_balance,
                            interpolate_ice_to_time)
 from ..core.ice.masks import determine_masks
@@ -41,13 +46,26 @@ from ..core.ice.thermodynamics import (
     run_thermodynamics, robin_solution, calc_pressure_melting_point)
 from ..core.idealised_geometries import calc_idealised_geometry
 from ..mesh import Mesh, build_mesh_from_config
+from ..mesh.creation import build_mesh_from_gridded_geometry
+from ..mesh.grids import setup_square_grid
+from ..io.output_files import (LINE_FIELDS, MESH_FIELDS_DEFAULT,
+                               MeshOutputFile, ScalarOutputFile,
+                               GridOutputFile, write_restart_file,
+                               restore_state_from_restart,
+                               load_restart_host_counters, _state_leaves)
+from ..remap import get_map
+from ..remap.conservative import build_map_nearest
 from ..ops import resolve_device
 from ..models.smb import make_run_smb
 from ..models.bmb import make_run_bmb
 from ..models.lmb import make_run_lmb
 from ..models.amb import make_run_amb
 from ..models.climate import make_run_climate
-from ..utils.logging_utils import routine
+from ..utils.checksum import ChecksumLogger
+from ..utils.logging_utils import routine, happy, warning
+
+
+_BIG = 9.9e9
 
 
 def _require(C, key, allowed, what=None):
@@ -65,24 +83,30 @@ def _check_slice(C, name):
     if C.choice_thermo_model == "3D_heat_equation":
         _require(C, "choice_geothermal_heat_flux", ("uniform",),
                  "reading input files")
-    _require(C, "allow_mesh_updates", (False,), "remeshing")
     _require(C, f"choice_refgeo_init_{name}", ("idealised",))
     _require(C, f"choice_climate_model_{name}", ("none",))
     _require(C, f"choice_ocean_model_{name}", ("none",))
     _require(C, "choice_GIA_model", ("none",))
-    _require(C, "choice_sealevel_model", ("fixed",))
+    _require(C, "choice_sealevel_model", ("fixed", "prescribed"))
     _require(C, "choice_bed_roughness", ("uniform",))
     _require(C, "do_bed_roughness_nudging", (False,))
     _require(C, "do_target_dHi_dt", (False,))
     _require(C, "choice_tracer_tracking_model", ("none",))
-    _require(C, "do_write_checksum_log", (False,))
-    _require(C, f"pc_choice_initialise_{name}", ("zero",))
+    _require(C, f"pc_choice_initialise_{name}", ("zero", "read_from_file"))
     _require(C, f"choice_initial_velocity_{name}", ("zero",))
     _require(C, "tpu_n_devices", (1,), "multi-device runs")
     _require(C, "tpu_precision", ("f32", "f64"))
     if C.choice_basal_hydrology_model == "Salle2025":
         raise NotImplementedError(
             "choice_basal_hydrology_model 'Salle2025' is not ported yet")
+    if getattr(C, f"transects_{name}"):
+        raise NotImplementedError(
+            f"transects_{name}: transect output is not ported yet "
+            "(ROADMAP A.15)")
+    if C.choice_regions_of_interest.strip():
+        raise NotImplementedError(
+            "choice_regions_of_interest: the ROI polygons and their scalar "
+            "files are not ported yet")
 
 
 @dataclass
@@ -97,11 +121,6 @@ class ModelRegion:
     def __post_init__(self):
         C = self.C
         _check_slice(C, self.name)
-        if self.output_dir is not None:
-            raise NotImplementedError(
-                "ModelRegion output_dir: the field and NetCDF output files "
-                "are not ported yet (ROADMAP A.18); the scalars go to "
-                "scalars_history")
         self.device = resolve_device(self.device)
         with routine("initialise_model_region"):
             if self.mesh is None:
@@ -125,23 +144,17 @@ class ModelRegion:
                 self.mesh.V[:, 0], self.mesh.V[:, 1],
                 C.choice_refgeo_init_idealised, C)
             Hi = np.where(Hi < C.refgeo_Hi_min, 0.0, Hi)
-            # the reference overrides the geometry's SL with the
-            # configured fixed value at ice-model initialisation
-            # (ice_dynamics_main.f90:238)
-            SL = np.full_like(np.asarray(Hi, dtype=np.float64),
-                              C.fixed_sealevel)
+            if C.choice_sealevel_model == "fixed":
+                # the reference overrides the geometry's SL with the
+                # configured fixed value at ice-model initialisation
+                # (ice_dynamics_main.f90:238)
+                SL = np.full_like(np.asarray(Hi, dtype=np.float64),
+                                  C.fixed_sealevel)
             self.state = init_ice_state(self.md, Hi, Hb, SL, nz=C.nz,
                                         dt_init=C.dt_ice_min)
             self.time = float(C.start_time_of_run)
             self.state = self.state.replace(t_Hi_prev=self.time,
                                             t_Hi_next=self.time)
-
-            # component models
-            self.run_climate = make_run_climate(C, self.md, self.name)
-            self.run_smb = make_run_smb(C, self.md, self.name)
-            self.run_bmb = make_run_bmb(C, self.md, self.name)
-            self.run_lmb = make_run_lmb(C, self.md, self.name)
-            self.run_amb = make_run_amb(C, self.md, self.name)
 
             # present-day reference geometry (for alter_ice_thickness
             # fixiness/limitness)
@@ -173,12 +186,6 @@ class ModelRegion:
             self.state = self.state.replace(
                 bed_roughness=torch.full_like(self.state.Hi, rough))
 
-            self._bedrock_cdfs = _build_bedrock_cdfs(C, self.mesh,
-                                                     self.name, self.md)
-            self.pc_step = make_pc_step(C, self.md, refgeo_Hi=Hi_PD,
-                                        refgeo_Hb=Hb_PD,
-                                        bedrock_cdfs=self._bedrock_cdfs)
-
             # thermodynamics: one step per dt_thermodynamics, caught up
             # after every ice step of run_to (the reference fuses it into
             # make_pc_multistep); the next thermodynamics time carries
@@ -188,14 +195,7 @@ class ModelRegion:
             self.thermo_steps = 0
             self.thermo_n_unstable = torch.zeros((), dtype=torch.int64,
                                                  device=self.device)
-            if self.do_thermo:
-                register_thermo_static(self.md)
-                heat = make_heat_solver(C, self.md)
-                self._geothermal = make_geothermal_flux(C, self.md)
-                dt_th = C.dt_thermodynamics
-                self._thermo_step = \
-                    lambda md_, s, T_surf, SMB, BMB: run_thermodynamics(
-                        C, md_, s, dt_th, T_surf, SMB, BMB, heat)
+            self._build_on_mesh()
 
             self.climate = self.run_climate(self.time, self.state)
             self._T_surf = self.climate["T2m"].mean(dim=1)
@@ -240,18 +240,84 @@ class ModelRegion:
                 self._sync()
 
             # event scheduling (UFEMISM_main_model.f90:598-609); the
-            # ocean ('none') and restart events do nothing here but bound
-            # the ice windows as the reference's do
+            # ocean ('none') event does nothing here but bound the ice
+            # windows as the reference's does. The checksum oracle fires
+            # on its own cadence (the fastest coupling interval)
             t0 = self.time
             self.t_next = {"climate": t0, "ocean": t0, "SMB": t0, "BMB": t0,
-                           "LMB": t0, "output": t0, "output_restart": t0}
+                           "LMB": t0, "output": t0, "output_restart": t0,
+                           "checksum": t0 if C.do_write_checksum_log
+                           else _BIG}
             self.dt_comp = {"climate": C.dt_climate, "ocean": C.dt_ocean,
                             "SMB": C.dt_SMB, "BMB": C.dt_BMB,
                             "LMB": C.dt_LMB, "output": C.dt_output,
-                            "output_restart": C.dt_output_restart}
+                            "output_restart": C.dt_output_restart,
+                            "checksum": min(C.dt_SMB, C.dt_BMB)}
             self.n_dt_ice = 0
+            self.n_mesh_updates = 0
+            self.remesh_timings = []
+            self.t_last_mesh_update = None     # set by the first run_to
             self.wallclock = 0.0
             self.scalars_history = []
+            self._outputs_open = False
+            self._out_gen = None
+
+            # checksum parity oracle (checksum_mod.f90; call points mirror
+            # ice_dynamics_main.f90:153-162)
+            self.checksum = ChecksumLogger(
+                path=(Path(self.output_dir)
+                      / f"checksum_log_{self.name}.jsonl")
+                if (self.output_dir and C.do_write_checksum_log) else None,
+                enabled=C.do_write_checksum_log)
+
+            # pc-controller warm start from a restart file
+            # (predictor_corrector_scheme.f90:417-444 'read_from_file')
+            if getattr(C, f"pc_choice_initialise_{self.name}") \
+                    == "read_from_file":
+                fname = getattr(C, f"filename_pc_initialise_{self.name}")
+                _, st = restore_state_from_restart(self.state, fname)
+                self.state = self.state.replace(pc=st.pc)
+
+    def _build_on_mesh(self):
+        """Everything that holds the mesh's tables or device pointers:
+        the component models, the bedrock CDFs, the PC step (with the
+        stress-balance solver, its kernels' descriptors and the
+        preconditioner) and the thermodynamics closures. Built at
+        construction and again after every mesh update, so that nothing
+        keeps a pointer into a replaced mesh's tensors."""
+        C = self.C
+        self.run_climate = make_run_climate(C, self.md, self.name)
+        self.run_smb = make_run_smb(C, self.md, self.name)
+        self.run_bmb = make_run_bmb(C, self.md, self.name)
+        self.run_lmb = make_run_lmb(C, self.md, self.name)
+        self.run_amb = make_run_amb(C, self.md, self.name)
+        self._bedrock_cdfs = _build_bedrock_cdfs(C, self.mesh, self.name,
+                                                 self.md)
+        Hi_PD, Hb_PD = self.refgeo_PD
+        self.pc_step = make_pc_step(C, self.md, refgeo_Hi=Hi_PD,
+                                    refgeo_Hb=Hb_PD,
+                                    bedrock_cdfs=self._bedrock_cdfs)
+        if self.do_thermo:
+            register_thermo_static(self.md)
+            heat = make_heat_solver(C, self.md)
+            self._geothermal = make_geothermal_flux(C, self.md)
+            dt_th = C.dt_thermodynamics
+            self._thermo_step = \
+                lambda md_, s, T_surf, SMB, BMB: run_thermodynamics(
+                    C, md_, s, dt_th, T_surf, SMB, BMB, heat)
+
+    def _refresh_forcing(self):
+        """The component models' fields at the region's time (after a
+        resume or a mesh update)."""
+        t = self.time
+        self.climate = self.run_climate(t, self.state)
+        self._T_surf = self.climate["T2m"].mean(dim=1)
+        self.SMB = self.run_smb(t, self.state)
+        m0, fg0 = self._masks_fracs(self.state.Hi, self.state.Hb,
+                                    self.state.SL)
+        self.BMB = self.run_bmb(t, self.state, m0, fg0)
+        self.LMB = self.run_lmb(t, self.state, m0)
+        self.AMB = self.run_amb(t, self.state)
 
     def set_sealevel(self, sealevel: float):
         """Apply a (possibly time-varying) global sea level to the region
@@ -261,12 +327,257 @@ class ModelRegion:
             SL=torch.full_like(self.state.SL, sealevel))
         return self
 
+    # -- restart --------------------------------------------------------
+
+    def write_restart(self):
+        """Write the restart file at the current model time (every
+        output_restart event, and right after a mesh update)."""
+        if self.output_dir is not None:
+            out = Path(self.output_dir)
+            out.mkdir(parents=True, exist_ok=True)
+            write_restart_file(out / f"restart_{self.name}_00001.nc",
+                               self.mesh, self.state, self.time,
+                               host_counters={"n_dt_ice": int(self.n_dt_ice)})
+
+    def resume_from_restart(self, path):
+        """Restore the full model state (incl. pc controller) and model
+        time from a restart file written by this run or an earlier one on
+        the same mesh (the port's or the JAX package's); the active
+        component events re-fire at the resumed time."""
+        time, state = restore_state_from_restart(self.state, path)
+        self.state = state
+        self.time = time
+        # cumulative host-side stability counters survive the resume
+        # (the reference persists pc state + counters,
+        # predictor_corrector_scheme.f90:510-620); restarts written
+        # before the scheme carry none -> keep the fresh counter.
+        self.n_dt_ice = int(load_restart_host_counters(path).get(
+            "n_dt_ice", self.n_dt_ice))
+        for k in self.t_next:
+            # re-fire only the events active in this configuration
+            # (inactive ones are parked at _BIG and must stay there)
+            if self.t_next[k] < _BIG:
+                self.t_next[k] = time
+        if self.do_thermo:
+            self.t_thermo_next = time + self.C.dt_thermodynamics
+        self._refresh_forcing()
+        return self
+
+    def _log_checksums(self):
+        """Checksum the hot ice fields at checksum-event times (the
+        reference's call points, ice_dynamics_main.f90:153-162), on the
+        geometry interpolated to the current model time; one host read."""
+        s = interpolate_ice_to_time(self.state, self.time)
+        names = ("Hi", "Hs", "Hib", "TAF", "dHi_dt",
+                 "u_vav_b", "v_vav_b", "Ti")
+        vals = host_arrays({n: getattr(s, n) for n in names})
+        for n in names:
+            self.checksum.log(f"ice.{n}", vals[n], t=self.time)
+
+    # -- output -------------------------------------------------------------
+
+    # choice_output_field_* names the writers can resolve from the model
+    # state (main_regional_output.f90's menu; the rest warn)
+    _EXTRA_OUTPUT_SUPPORTED = {
+        "u_3D", "v_3D", "w_3D", "u_vav", "v_vav", "uabs_vav",
+        "u_base", "v_base", "uabs_base",
+        "dHi", "Hs_b", "dHs_dx", "dHs_dy",
+        "SMB", "BMB", "LMB", "mask",
+        "mask_gl_gr", "mask_gl_fl", "mask_cf_gr", "mask_cf_fl",
+        "fraction_gr_b", "bed_roughness", "till_friction_angle",
+        "pore_water_fraction", "basal_friction_coefficient",
+        "TAF", "R_shear", "pc_truncation_error",
+        # polyline fields, extracted on the host at output cadence
+        # (mesh_output_files.f90 write_grounding_line_to_file ff.)
+        "grounding_line", "ice_margin", "calving_front", "coastline",
+        "grounded_ice_contour",
+    }
+
+    def _requested_output_fields(self):
+        """Extra output variables from choice_output_field_01..50
+        (model_configuration: every selected name becomes a variable in
+        the main mesh + grid output files)."""
+        req, unsupported = [], []
+        for i in range(1, 51):
+            v = getattr(self.C, f"choice_output_field_{i:02d}", "none")
+            if not v or v == "none" or v in req \
+                    or v in MESH_FIELDS_DEFAULT:
+                continue
+            if v in self._EXTRA_OUTPUT_SUPPORTED:
+                req.append(v)
+            else:
+                unsupported.append(v)
+        if unsupported:
+            warning("choice_output_field: not yet writable, skipping {}",
+                    unsupported)
+        return req
+
+    def _open_outputs(self):
+        """Create the output files at the first output event: the mesh
+        output of this mesh generation, the scalar series, the gridded
+        output and, if asked for, the ISMIP file."""
+        if self._outputs_open or self.output_dir is None:
+            return
+        out = Path(self.output_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        if self._out_gen is None:
+            # mesh output files are numbered per mesh generation
+            # (reference: a new main_output_<R>_0000N.nc per mesh
+            # update, main_regional_output.f90). A fresh process
+            # resuming into an output dir with existing generations
+            # starts the next one so prior frames survive the resume.
+            existing = [p for p in out.glob(f"main_output_{self.name}_0*.nc")
+                        if "_grid" not in p.name]
+            self._out_gen = len(existing) + 1
+        self._extra_out_fields = self._requested_output_fields()
+        out_fields = MESH_FIELDS_DEFAULT + self._extra_out_fields
+        self.mesh_out = MeshOutputFile(
+            out / f"main_output_{self.name}_{self._out_gen:05d}.nc",
+            self.mesh, fields=out_fields)
+        self.scalar_out = ScalarOutputFile(
+            out / f"scalar_output_{self.name}_00001.nc")
+        # gridded main output (grid_output_files.f90; created for every
+        # region like the reference, UFEMISM_main_model.f90:664)
+        self._out_grid = setup_square_grid(
+            self.mesh.xmin, self.mesh.xmax, self.mesh.ymin, self.mesh.ymax,
+            getattr(self.C, f"dx_output_grid_{self.name}"))
+        self.grid_out = GridOutputFile(
+            out / f"main_output_{self.name}_grid.nc", self.mesh,
+            self._out_grid, fields=out_fields)
+        # ISMIP-standard gridded output (ismip_grid_output_files.f90)
+        self.ismip_out = None
+        if self.C.do_create_ismip_output:
+            from ..io.ismip_output import ISMIPOutput
+            self.ismip_out = ISMIPOutput(
+                out / f"main_output_{self.name}_grid_ISMIP.nc",
+                self._out_grid)
+        self._outputs_open = True
+
+    def _rotate_outputs_for_new_mesh(self):
+        """Mesh update while outputs are open: rotate the mesh output
+        file to the next generation (the reference creates a fresh
+        main_output_<R>_0000N.nc per mesh, main_regional_output.f90)
+        and rebuild the mesh->grid maps of the gridded files, which
+        keep their history."""
+        if not self._outputs_open:
+            return
+        self._out_gen += 1
+        self.mesh_out = MeshOutputFile(
+            Path(self.output_dir)
+            / f"main_output_{self.name}_{self._out_gen:05d}.nc",
+            self.mesh, fields=MESH_FIELDS_DEFAULT + self._extra_out_fields)
+        self.grid_out.update_mesh(self.mesh)
+
+    def _ismip_map(self, f):
+        M = get_map(self.mesh, self._out_grid)
+        return (M @ np.asarray(f)).reshape(self._out_grid.nx,
+                                           self._out_grid.ny).T
+
+    def _output_fields(self, s, m, fg):
+        """The mesh output fields at the region's time (the reference's
+        default set and the requested extras), as device tensors."""
+        C, md, extra = self.C, self.md, self._extra_out_fields
+        # surface velocities stay on triangles, like the reference
+        # (B_GRID_FIELDS routes them to the ti dim)
+        u_sf = s.u_3D_b[:, 0]
+        v_sf = s.v_3D_b[:, 0]
+        fields = {
+            "Hi": s.Hi, "Hb": s.Hb, "Hs": s.Hs, "Hib": s.Hib,
+            "SL": s.SL, "dHi_dt": s.dHi_dt,
+            "u_vav_b": s.u_vav_b, "v_vav_b": s.v_vav_b,
+            "uabs_vav_b": torch.sqrt(s.u_vav_b ** 2 + s.v_vav_b ** 2),
+            "divQ": s.divQ, "fraction_gr": fg,
+            "Ti_base": s.Ti[:, -1],
+            "u_surf": u_sf, "v_surf": v_sf,
+            "uabs_surf": torch.sqrt(u_sf ** 2 + v_sf ** 2)}
+        if "u_3D" in extra:
+            fields["u_3D"] = s.u_3D_b
+        if "v_3D" in extra:
+            fields["v_3D"] = s.v_3D_b
+        if "w_3D" in extra:
+            from ..core.ice.thermodynamics import (
+                calc_zeta_gradients, calc_vertical_velocities)
+            dzx, dzy, dzz, _dzt = calc_zeta_gradients(
+                md, s.Hi, s.Hs, s.dHi_dt, s.dHi_dt)
+            u3a = md.M_map_b_a @ s.u_3D_b
+            v3a = md.M_map_b_a @ s.v_3D_b
+            fields["w_3D"] = calc_vertical_velocities(
+                C, md, m, s.Hi, s.Hib, s.dHi_dt, torch.zeros_like(s.Hi),
+                s.u_3D_b, s.v_3D_b, u3a, v3a, dzx, dzy, dzz, self.BMB)
+        if "u_vav" in extra:
+            fields["u_vav"] = s.u_vav_b
+        if "v_vav" in extra:
+            fields["v_vav"] = s.v_vav_b
+        if "uabs_vav" in extra:
+            fields["uabs_vav"] = torch.sqrt(s.u_vav_b ** 2 + s.v_vav_b ** 2)
+        if "u_base" in extra or "v_base" in extra or "uabs_base" in extra:
+            ub, vb = s.u_3D_b[:, -1], s.v_3D_b[:, -1]
+            fields.update(u_base=ub, v_base=vb,
+                          uabs_base=torch.sqrt(ub ** 2 + vb ** 2))
+        if "dHi" in extra:
+            fields["dHi"] = s.Hi - md.x("refgeo_Hi")
+        if "Hs_b" in extra:
+            fields["Hs_b"] = md.M_map_a_b @ s.Hs
+        if "dHs_dx" in extra:
+            fields["dHs_dx"] = md.M_ddx_a_a.exact_matvec(s.Hs)
+        if "dHs_dy" in extra:
+            fields["dHs_dy"] = md.M_ddy_a_a.exact_matvec(s.Hs)
+        for name in ("SMB", "BMB", "LMB"):
+            if name in extra:
+                fields[name] = getattr(self, name)
+        if "mask" in extra:
+            fields["mask"] = s.mask.to(s.Hi.dtype)
+        for mk in ("mask_gl_gr", "mask_gl_fl", "mask_cf_gr", "mask_cf_fl"):
+            if mk in extra:
+                fields[mk] = m[mk].to(s.Hi.dtype)
+        if "fraction_gr_b" in extra:
+            fields["fraction_gr_b"] = s.fraction_gr_b
+        if "bed_roughness" in extra or "till_friction_angle" in extra:
+            fields["bed_roughness"] = s.bed_roughness
+            fields["till_friction_angle"] = s.bed_roughness
+        if "pore_water_fraction" in extra:
+            from ..core.ice.hydrology import \
+                calc_pore_water_fraction_martin2011
+            fields["pore_water_fraction"] = \
+                calc_pore_water_fraction_martin2011(C, s.Hb, s.SL)
+        if "basal_friction_coefficient" in extra:
+            from ..core.ice.sliding import calc_basal_friction_coefficient
+            from ..core.ice.ssadiva import _bed_roughness_fields
+            from ..core.ice.subgrid import calc_effective_thickness
+            Hi_eff_o, _fm = calc_effective_thickness(md, s.Hi, s.Hb, s.SL)
+            u_base_a = md.M_map_b_a @ s.u_3D_b[:, -1].contiguous()
+            v_base_a = md.M_map_b_a @ s.v_3D_b[:, -1].contiguous()
+            slope = torch.sqrt(md.M_ddx_a_a.exact_matvec(s.Hs) ** 2
+                               + md.M_ddy_a_a.exact_matvec(s.Hs) ** 2)
+            fields["basal_friction_coefficient"] = \
+                calc_basal_friction_coefficient(
+                    C, md, _bed_roughness_fields(C, md, s.bed_roughness),
+                    u_base_a, v_base_a, s.Hi, Hi_eff_o, s.Hb, s.SL, slope,
+                    fg, m)
+        if "TAF" in extra or any(f in LINE_FIELDS for f in extra):
+            fields["TAF"] = s.TAF
+            fields["mask_grounded_ice"] = \
+                m["mask_grounded_ice"].to(s.Hi.dtype)
+        if "pc_truncation_error" in extra:
+            # mesh_output_files.f90:495: region%ice%pc%tau_np1
+            fields["pc_truncation_error"] = s.pc.tau_np1
+        if "R_shear" in extra:
+            # slide/shear ratio, conservation_of_momentum_main.f90:240:
+            # (|u_base| + 0.1) / (|u_surf| + 0.1)
+            ub = md.M_map_b_a @ s.u_3D_b[:, -1].contiguous()
+            vb = md.M_map_b_a @ s.v_3D_b[:, -1].contiguous()
+            us = md.M_map_b_a @ s.u_3D_b[:, 0].contiguous()
+            vs = md.M_map_b_a @ s.v_3D_b[:, 0].contiguous()
+            fields["R_shear"] = (torch.sqrt(ub ** 2 + vb ** 2) + 0.1) \
+                / (torch.sqrt(us ** 2 + vs ** 2) + 0.1)
+        return fields
+
     def write_output(self):
-        """The scalar half of the reference's output event: masks,
+        """The reference's output event at the region's time: masks,
         grounded fractions, the integrated scalars and the solver
-        counters at the region's time, appended to `scalars_history`
-        (one host read). The field and NetCDF writes wait for ROADMAP
-        A.18."""
+        counters, appended to `scalars_history`; with an output
+        directory also the mesh fields, written to the mesh, grid,
+        scalar (and ISMIP) files. One host read of fields and scalars."""
         s = interpolate_ice_to_time(self.state, self.time)
         m, fg = self._masks_fracs(s.Hi, s.Hb, s.SL)
         scal = calc_ice_scalars(self.md, s.Hi, s.Hb, s.SL, fg, self.SMB,
@@ -275,12 +586,34 @@ class ModelRegion:
                                 u_vav_b=s.u_vav_b, v_vav_b=s.v_vav_b,
                                 dHi_dt=s.dHi_dt,
                                 dHi_dt_target=s.dHi_dt_target)
-        values = torch.stack([v.to(torch.float64)
-                              for v in scal.values()]).tolist()
-        rec = {"time": self.time, **dict(zip(scal, values))}
-        rec.update(dt_ice=float(s.dt_ice), n_visc_its=float(s.n_visc_its),
-                   n_Axb_its=float(s.n_Axb_its))
-        self.scalars_history.append(rec)
+        fields = {}
+        if self.output_dir is not None:
+            self._open_outputs()
+            fields = self._output_fields(s, m, fg)
+        host = host_arrays({**{"scalar." + k: v for k, v in scal.items()},
+                            **fields})
+        scal = {k: float(host.pop("scalar." + k)) for k in scal}
+        scal.update(dt_ice=float(s.dt_ice), n_visc_its=int(s.n_visc_its),
+                    n_Axb_its=int(s.n_Axb_its))
+        self.scalars_history.append(
+            {"time": self.time, **{k: float(v) for k, v in scal.items()}})
+        if self.output_dir is None:
+            return
+        fields = host
+        for name in (f for f in self._extra_out_fields if f in LINE_FIELDS):
+            from ..mesh.contour import calc_mesh_contour, line_output_fields
+            dmask, level = line_output_fields(
+                name, fields["Hi"], fields["Hb"], fields["SL"],
+                fields["TAF"], fields["mask_grounded_ice"] > 0.5)
+            fields[name] = calc_mesh_contour(self.mesh, dmask, level)
+        self.scalar_out.write(self.time, scal)
+        self.mesh_out.write(self.time, fields)
+        self.grid_out.write(self.time, fields)
+        if self.ismip_out is not None:
+            from ..io.ismip_output import ismip_fields_from_state
+            self.ismip_out.write(self.time, ismip_fields_from_state(
+                self.md, self._out_grid, self._ismip_map, s, m, fg,
+                self.SMB, self.BMB))
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -315,18 +648,37 @@ class ModelRegion:
                       f"visc={self.state.n_visc_its}  "
                       f"axb={self.state.n_Axb_its}", flush=True)
 
+        if self.t_last_mesh_update is None:
+            self.t_last_mesh_update = self.time
         with routine("run_model_region"):
             while self.time < t_end - 1e-9:
+                # adaptive mesh update check (UFEMISM_main_model.f90:
+                # 103-118)
+                if (C.allow_mesh_updates
+                        and self.time - self.t_last_mesh_update
+                        >= C.dt_mesh_update_min):
+                    fit = calc_mesh_fitness_coefficient(C, self.mesh,
+                                                        self.state)
+                    if fit < C.minimum_mesh_fitness_coefficient:
+                        happy("mesh fitness {:.3f} < {:.3f}: updating mesh",
+                              fit, C.minimum_mesh_fitness_coefficient)
+                        self.update_mesh()
+                    self.t_last_mesh_update = self.time
+
                 # run components whose t_next has arrived
                 self._run_components()
 
                 # ice dynamics: advance the prediction window if due, up
-                # to the next event boundary. dt is NOT clamped to land on
-                # it: the reference's ice window freely overshoots
-                # component events and the region interpolates Hi inside
-                # it (ice_dynamics_main.f90:85-121)
+                # to the next event boundary (and the next mesh-update
+                # check). dt is NOT clamped to land on it: the
+                # reference's ice window freely overshoots component
+                # events and the region interpolates Hi inside it
+                # (ice_dynamics_main.f90:85-121)
                 if self.state.t_Hi_next <= self.time + 1e-9:
                     t_stop = min([t_end] + list(self.t_next.values()))
+                    if C.allow_mesh_updates:
+                        t_stop = min(t_stop, self.t_last_mesh_update
+                                     + C.dt_mesh_update_min)
                     if t_stop > self.state.t_Hi_next + 1e-9:
                         step(self.do_thermo)
                         while self.state.t_Hi_next < t_stop - 1e-9:
@@ -393,11 +745,129 @@ class ModelRegion:
             bump("LMB")
         if need("ocean"):
             bump("ocean")
+        if need("checksum"):
+            if self.checksum.enabled:
+                self._log_checksums()
+            bump("checksum")
         if need("output"):
             self.write_output()
             bump("output")
         if need("output_restart"):
+            self.write_restart()
             bump("output_restart")
+
+    # -- adaptive mesh updates (UFEMISM_main_model.f90:1211-1474) -------------
+
+    def update_mesh(self):
+        """Create a new mesh fitted to the current geometry and move the
+        region onto it (update_mesh, :1211): rasterise the geometry, build
+        the mesh, remap the full state (one host read, one upload),
+        restart the PC controller at dt_ice_min, rebuild everything that
+        holds the mesh's tables, refresh the forcing, rotate the output
+        files and write the restart. The wall time of the three parts
+        (mesh build, map build, device rebuild) is appended to
+        `remesh_timings`."""
+        C = self.C
+        t_start = _time.perf_counter()
+        old_mesh, s = self.mesh, self.state
+        self.n_mesh_updates += 1
+        old = host_arrays(_state_leaves(s))
+
+        # rasterise the current geometry to a grid for feature extraction
+        dx = max(min(C.maximum_resolution_grounding_line,
+                     C.maximum_resolution_calving_front) / 2.0,
+                 old_mesh.R.min())
+        g = setup_square_grid(old_mesh.xmin, old_mesh.xmax,
+                              old_mesh.ymin, old_mesh.ymax, dx)
+        Mg = get_map(old_mesh, g, method="trilin")
+        Hi_g, Hb_g, SL_g = ((Mg @ old[k]).reshape(g.nx, g.ny)
+                            for k in ("Hi", "Hb", "SL"))
+        new_mesh = build_mesh_from_gridded_geometry(
+            C, self.name, g.x, g.y, Hi_g, Hb_g, SL_g)
+        t_mesh = _time.perf_counter()
+
+        # the maps of the full state (every field per its metadata -
+        # conservative / trilinear / reinit / copy; the reference's
+        # remap-everything walk, UFEMISM_main_model.f90:1311-1323); the
+        # conservative map builds the new mesh's operators
+        M_cons_a = get_map(old_mesh, new_mesh)
+        M_tri_a = get_map(old_mesh, new_mesh, method="trilin")
+        M_b = build_map_nearest(old_mesh.TriGC, new_mesh.TriGC,
+                                old_mesh.nTri)
+        moved = remap_leaves(old, (M_cons_a, M_b), (M_tri_a, M_b))
+        Hi_PD, Hb_PD = self.refgeo_PD
+        self.refgeo_PD = (M_tri_a @ Hi_PD, M_tri_a @ Hb_PD)
+        t_maps = _time.perf_counter()
+
+        glen_scale = self.md.extras.get("glen_A_scale")
+        self.mesh = new_mesh
+        self.md = build_mesh_data(new_mesh, dtype=self.md.A.dtype,
+                                  device=self.device)
+        if glen_scale is not None:
+            self.md.extras["glen_A_scale"] = glen_scale
+        leaves = _state_leaves(s)
+        init = {"init.Hi": np.maximum(0.0, M_cons_a @ old["Hi"]),
+                "init.Hb": M_cons_a @ old["Hb"],
+                "init.SL": M_tri_a @ old["SL"]}
+        dev = device_arrays(
+            {**init, **moved},
+            {**{k: self.md.A.dtype for k in init},
+             **{k: leaves[k].dtype for k in moved}}, self.device)
+        Hi_new = dev["init.Hi"]
+        new_state = init_ice_state(self.md, Hi_new, dev["init.Hb"],
+                                   dev["init.SL"], nz=C.nz,
+                                   dt_init=s.pc.dt_np1)
+        new_state = assemble_remapped_state(
+            s, new_state, {k: dev[k] for k in moved})
+        # reinitialise the PC controller from scratch at dt_ice_min, as
+        # the reference does (remap_pc_scheme,
+        # predictor_corrector_scheme.f90:645-658)
+        pc0 = new_state.pc
+        self.state = new_state.replace(
+            Hi=Hi_new, Hi_prev=Hi_new, Hi_next=Hi_new,
+            t_Hi_prev=s.t_Hi_next, t_Hi_next=s.t_Hi_next,
+            dt_ice=float(C.dt_ice_min),
+            pc=PCState(dt_n=float(C.dt_ice_min),
+                       dt_np1=float(C.dt_ice_min),
+                       eta_n=float(C.pc_epsilon),
+                       eta_np1=float(C.pc_epsilon),
+                       dHi_dt_Hi_nm1_u_nm1=torch.zeros_like(
+                           pc0.dHi_dt_Hi_nm1_u_nm1),
+                       tau_np1=torch.zeros_like(pc0.tau_np1)))
+
+        # rebuild what holds the mesh, and refresh the forcing on it (the
+        # reference resets every component t_next to now instead,
+        # UFEMISM_main_model.f90:1326-1335)
+        self._build_on_mesh()
+        self._refresh_forcing()
+        self._sync()
+        t_device = _time.perf_counter()
+        self._rotate_outputs_for_new_mesh()
+        self.t_last_mesh_update = self.time
+        # the reference recreates its restart file per mesh
+        # (output_files.f90:320-321)
+        self.write_restart()
+        self.remesh_timings.append({"mesh_s": t_mesh - t_start,
+                                    "maps_s": t_maps - t_mesh,
+                                    "device_s": t_device - t_maps})
+
+
+def calc_mesh_fitness_coefficient(C, mesh, state):
+    """Fraction of grounding-line/calving-front vertices still meeting
+    their target resolution (calc_mesh_fitness_coefficient, :1356); one
+    host read of the four masks."""
+    m = host_arrays({k: getattr(state, k) for k in (
+        "mask_gl_gr", "mask_gl_fl", "mask_cf_gr", "mask_cf_fl")})
+    gl = m["mask_gl_gr"] | m["mask_gl_fl"]
+    cf = m["mask_cf_gr"] | m["mask_cf_fl"]
+    R = mesh.R
+    tol = C.mesh_resolution_tolerance
+    n_tot = int(gl.sum() + cf.sum())
+    if n_tot == 0:
+        return 1.0
+    bad_gl = gl & (R > C.maximum_resolution_grounding_line * tol)
+    bad_cf = cf & (R > C.maximum_resolution_calving_front * tol)
+    return 1.0 - (int(bad_gl.sum()) + int(bad_cf.sum())) / n_tot
 
 
 def _build_bedrock_cdfs(C, mesh, region_name, md):
