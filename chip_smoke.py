@@ -102,6 +102,29 @@ of which ends the run with a non-zero exit if it fails:
               fields within 1e-12); a run perturbed by 1e-15 measures the
               state's sensitivity; every output file read back through the
               port's ncio, without h5py.
+15. berends_exp2 - Berends et al. (2023) experiment II's inversion chain
+              on the MISMIP+ channel at 10 km in f32 (EXP2): the true
+              till friction angle read from an x/y file, the ice1r
+              retreat, then friction nudging with an inverted BMB and
+              target thinning rates; per leg the steps, counts, wall and
+              launches, the nudging events timed, the harness's metrics.
+              The CPU runs that 16-18 are held to run beside it.
+16. mismipplus_ice1r - the state of 14 resumed with the MISMIP+ ice1r
+              melt (MP_ICE1R) after the retreat leg's start-up, IR_YEARS
+              model years in f32 with the grounding line read on the
+              westeast transect every year and the transect's output file
+              read back; the f32 counts held to IR_*; in f64 held to the
+              CPU over MP_CMP_YR (equal counts, small's gaps, the first
+              BMB field within 1e-12).
+17. mismipplus_favier - the same with the Favier et al. (2019) melt under
+              the ISOMIP+ WARM ocean (MP_FAVIER), one model year; the
+              same checks.
+18. small_berends - the experiment II chain at 40 km in f64, card and
+              CPU: equal counts in every leg, roughness and inverted BMB
+              within 1e-10.
+19. small_thermo_files - SMALL_THERMO with the geothermal flux read from
+              a lon/lat file and the SMB from an x/y file, card against
+              CPU as small_thermo, heat_columns on a file-driven path.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -319,6 +342,78 @@ MP_PRECONDS = ("chebyshev", "neumann", "block_dense", "two_level")
 MP_PRECOND_RESTART = 300
 MP_CONVERGE_AT_RESTART = ("block_jacobi", "chebyshev", "neumann",
                           "block_dense", "two_level")
+# MISMIP+ ice1r (Asay-Davis et al. 2016, the retreat leg after the spin-up;
+# the JAX package's harness, ufemism2_tpu/validation/integrated_tests.py:
+# 530-637): MP_RESUME's state and physics with the ice1r melt, a BMB event
+# every model year (a stand-in: the schema's dt_BMB of 10 years would
+# evaluate the melt once in the cut window; the reference's
+# config_03_5km_ice1r.cfg is not in the repository) and the westeast
+# transect's output file; IR_YEARS model years (the reference runs 100),
+# the grounding line read from the transect every year as the harness
+# reads it
+IR_YEARS = 5
+MP_ICE1R = dict(MP_RESUME, choice_BMB_model_ANT="idealised",
+                choice_BMB_model_idealised="MISMIP+", dt_BMB=1.0,
+                transects_ANT="westeast,dx=1e3",
+                end_time_of_run=MP_RESUME["start_time_of_run"] + IR_YEARS)
+# its f32 trajectory on the card: ice steps, viscosity and Krylov
+# iterations over the IR_YEARS, fixed by the first run of the phase on an
+# NVIDIA H100 80GB HBM3
+IR_STEPS, IR_VISC_ITS, IR_AXB_ITS = 44, 168, 30140
+# the quadratic local melt of Favier et al. (2019) under the ISOMIP+ WARM
+# far-field profile (MISOMIP1: MISMIP+ ice under ISOMIP+ forcing), the
+# schema's gamma, an ocean and a BMB event every model year; one model year
+MP_FAVIER = dict(MP_RESUME, choice_ocean_model_ANT="idealised",
+                 choice_ocean_model_idealised="ISOMIP",
+                 choice_ocean_isomip_scenario="WARM",
+                 choice_BMB_model_ANT="parameterised",
+                 choice_BMB_model_parameterised="Favier2019",
+                 dt_ocean=1.0, dt_BMB=1.0)
+# Berends et al. (2023) experiment II, the chain 'dHdt_invfric_invBMB'
+# (integrated_tests.py:1142-1260) on the MISMIP+ channel: the MISMIPPLUS
+# stand-in with Zoet-Iverson sliding and the schema's boundaries (the
+# reference's config_01_exp_II_spinup_5km.cfg is not in the repository;
+# with the protocol's free-slip walls the slab's f64 solves end by
+# stagnation, and two roundings part by 1e-7 from the first solve on),
+# 10 km everywhere, f32, fixed mesh. Leg 1 runs with the true till
+# friction angle read from an x/y file; leg 2 runs the ice1r melt from leg
+# 1's thickness; leg 3 starts from leg 2's thickness with a uniform angle
+# (the true field's mean), nudges it by H_dHdt_flowline and inverts the
+# BMB against leg 2's geometry and thinning rate (do_target_dHi_dt). Legs
+# of EXP2_LEGS model years (the reference runs 20,000 / 10 / 2,000), so
+# leg 1 starts from 500 m of ice, not the reference's 100 m slab (whose
+# draft stays above the melt's -100 m and which has no grounded ice for
+# the nudging within a cut leg), and the nudging and BMB events come every
+# model year (the schema's 5 and 10 years would give none in a cut leg)
+EXP2 = dict({k: v for k, v in MISMIPPLUS.items()
+             if not k.startswith(("BC_u_", "BC_v_", "BC_H_"))},
+            choice_sliding_law="Zoet-Iverson",
+            refgeo_idealised_MISMIPplus_tune_A=False,
+            maximum_resolution_uniform=10e3,
+            maximum_resolution_grounded_ice=10e3,
+            maximum_resolution_floating_ice=10e3,
+            maximum_resolution_grounding_line=10e3,
+            grounding_line_width=10e3,
+            maximum_resolution_calving_front=10e3, calving_front_width=10e3,
+            maximum_resolution_ice_front=10e3, ice_front_width=10e3,
+            refgeo_idealised_MISMIPplus_Hi_init=500.0,
+            bed_roughness_nudging_dt=1.0, dt_BMB=1.0,
+            start_time_of_run=0.0)
+EXP2_LEGS = (0.5, 0.5, 1.0)
+# the same chain at 40 km (MP_SMALL's mesh) in f64, the viscosity loop and
+# the corrector cut as in the CPU tests; held card against CPU
+SMALL_EXP2 = dict(EXP2, tpu_precision="f64",
+                  maximum_resolution_uniform=40e3,
+                  maximum_resolution_grounded_ice=40e3,
+                  maximum_resolution_floating_ice=40e3,
+                  maximum_resolution_grounding_line=40e3,
+                  grounding_line_width=40e3,
+                  maximum_resolution_calving_front=40e3,
+                  calving_front_width=40e3,
+                  maximum_resolution_ice_front=40e3, ice_front_width=40e3,
+                  dx_refgeo_init_idealised=10e3,
+                  visc_it_nit=3, pc_nit_max=2)
+SMALL_EXP2_LEGS = (2.0, 1.0, 2.0)
 
 
 def say(phase, **kv):
@@ -1464,20 +1559,26 @@ def resume_snapshot(r):
                    for k in RESUME_FIELDS})
 
 
-def cpu_resume_snapshot(out_dir, t_cmp, snapshot_path):
-    """The f64 resume of MP_RESTART on the CPU (plain versions) to t_cmp,
-    its snapshot saved to snapshot_path; mismipplus_resume_phase runs this
-    in a process of its own."""
+def cpu_resume_snapshot(out_dir, t_cmp, snapshot_path, cfg="MP_RESUME",
+                        share="2"):
+    """The f64 resume of MP_RESTART under the configuration named `cfg`
+    (MP_RESUME, or MP_ICE1R or MP_FAVIER with the retreat leg's start-up)
+    on the CPU (plain versions) to t_cmp, its snapshot and the first BMB
+    field saved to snapshot_path; run in a process of its own, on
+    1/`share` of the cores (the card's runs go on beside it)."""
     from ufemism2_tpu_torch.config import Config
-    # half the cores: the card's runs go on beside this process
-    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
-    C = Config(**dict(MP_RESUME, tpu_precision="f64"))
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // int(share)))
+    C = Config(**dict(globals()[cfg], tpu_precision="f64"))
     t0 = time.perf_counter()
     r = resume_region(C, MP_RESTART, "cpu", out_dir)
+    bmb0 = r.BMB.clone()
+    if cfg != "MP_RESUME":
+        ice1r_start(r)
     n0, axb0 = r.n_dt_ice, r.state.n_Axb_its
     with contextlib.redirect_stdout(sys.stderr):
         r.run_to(float(t_cmp))
     snap = resume_snapshot(r)
+    snap["BMB_first"] = bmb0
     snap["run"] = dict(seconds=time.perf_counter() - t0,
                        steps=r.n_dt_ice - n0,
                        n_Axb_its=r.state.n_Axb_its - axb0,
@@ -1510,13 +1611,9 @@ def mismipplus_resume_phase(workdir):
     res, snaps = {}, {}
     # the CPU's run goes in a process of its own, beside the card's runs
     cpu_out = os.path.join(workdir, "resume_f64_cpu.pt")
-    cpu = subprocess.Popen(
-        [sys.executable, "-c", "import importlib.util, sys; "
-         "spec = importlib.util.spec_from_file_location('chip_smoke', "
-         "sys.argv[1]); m = importlib.util.module_from_spec(spec); "
-         "spec.loader.exec_module(m); m.cpu_resume_snapshot(*sys.argv[2:])",
-         os.path.abspath(__file__), os.path.join(workdir, "resume_f64_cpu"),
-         repr(t_cmp), cpu_out], stdout=sys.stderr, stderr=sys.stderr)
+    cpu = start_cpu_job("cpu_resume_snapshot",
+                        os.path.join(workdir, "resume_f64_cpu"),
+                        repr(t_cmp), cpu_out)
     try:
         zero_counts()
         for tag, prec in (("f32", "f32"), ("f64", "f64"),
@@ -1619,6 +1716,478 @@ def mismipplus_resume_phase(workdir):
     assert counts["diva_apply_launches"] > 0 \
         and counts["stack_spmv_launches"] > 0
     return out
+
+
+def start_cpu_job(fn, *args):
+    """chip_smoke.<fn>(*args) in a process of its own (the CPU runs that
+    the card's runs are held to go on beside them); its output goes to
+    standard error."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "import importlib.util, sys; "
+         "spec = importlib.util.spec_from_file_location('chip_smoke', "
+         "sys.argv[1]); m = importlib.util.module_from_spec(spec); "
+         "spec.loader.exec_module(m); getattr(m, sys.argv[2])(*sys.argv[3:])",
+         os.path.abspath(__file__), fn, *args],
+        stdout=sys.stderr, stderr=sys.stderr)
+
+
+def finish_cpu_job(proc, path, what, timeout=900):
+    """Wait for a start_cpu_job process; its saved result and the wait."""
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert rc == 0, f"the CPU's {what} run failed"
+    # a file this script's own child process wrote (numpy arrays in it)
+    return torch.load(path, weights_only=False), time.perf_counter() - t0
+
+
+def ice1r_start(r):
+    """The start of the retreat leg after a resume, as the JAX package's
+    harness makes it (integrated_tests.py:582-597): the prediction window
+    collapsed onto the resumed thickness, so that the first step resolves
+    the new melt at once, and the leg's own stability counters."""
+    s = r.state
+    r.state = s.replace(Hi_prev=s.Hi, Hi_next=s.Hi, t_Hi_prev=r.time,
+                        t_Hi_next=r.time, n_visc_its=0, n_Axb_its=0)
+
+
+def x_GL_westeast(r):
+    """The grounding line [m] on the westeast transect at 1 km, as the
+    harness measures every leg of MISMIP+ (integrated_tests.py:423-427)."""
+    from ufemism2_tpu_torch.models.transects import Transect
+    tr = Transect.named(r.mesh, "westeast", dx=1e3)
+    taf = tr.sample_vertices(r.state.TAF.double().cpu().numpy())
+    return tr.zero_crossing_distance(taf) + r.mesh.xmin
+
+
+def melt_m3_per_yr(r):
+    """The BMB integrated over the mesh [m^3 ice / yr], negative for melt."""
+    return float((r.BMB.double() * r.md.A.double()).sum())
+
+
+def start_retreat_cpu(phase, cfg_name, workdir):
+    """The CPU's f64 run that retreat_phase holds the card to, started in
+    a process of its own: (process, the path of its result)."""
+    t_cmp = globals()[cfg_name]["start_time_of_run"] + MP_CMP_YR
+    cpu_out = os.path.join(workdir, f"{phase}_f64_cpu.pt")
+    return start_cpu_job("cpu_resume_snapshot",
+                         os.path.join(workdir, f"{phase}_f64_cpu"),
+                         repr(t_cmp), cpu_out, cfg_name, "4"), cpu_out
+
+
+def retreat_phase(phase, cfg_name, years, workdir, cpu_job):
+    """MP_RESTART resumed under `cfg_name` (MP_ICE1R or MP_FAVIER) on the
+    card: the retreat leg's start-up, then `years` model years in f32, one
+    run_to a year, the grounding line read on the westeast transect every
+    year, the kernels' launches counted around it; the same start in f64
+    to MP_CMP_YR, held to the CPU's run (cpu_job, from start_retreat_cpu)
+    in counts, in fields within small_phase's gaps and in the first BMB
+    field within 1e-12. Every output file (the transect file among them,
+    where the configuration asks for it) is read back through the port's
+    ncio, without h5py."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.io.ncio import NCFile
+    cfg = globals()[cfg_name]
+    t_start = cfg["start_time_of_run"]
+    t_cmp = t_start + MP_CMP_YR
+    cpu, cpu_out = cpu_job
+    try:
+        C = Config(**dict(cfg, tpu_precision="f32"))
+        out_dir = os.path.join(workdir, f"{phase}_f32")
+        r = resume_region(C, MP_RESTART, "cuda", out_dir)
+        ice1r_start(r)
+        n0 = r.n_dt_ice
+        x_GL, melt = [x_GL_westeast(r)], [melt_m3_per_yr(r)]
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            for y in range(1, int(round(years)) + 1):
+                r.run_to(t_start + y)
+                x_GL.append(x_GL_westeast(r))
+                melt.append(melt_m3_per_yr(r))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        s = r.state
+        f32 = dict(
+            steps=r.n_dt_ice - n0, n_visc_its=s.n_visc_its,
+            n_Axb_its=s.n_Axb_its, wall_s=run_s,
+            sim_yr_per_hr=years / run_s * 3600.0,
+            ms_per_krylov_it=run_s * 1e3 / max(s.n_Axb_its, 1),
+            x_GL_km=[x / 1e3 for x in x_GL], melt_m3_per_yr=melt,
+            ice_volume_m3=float((s.Hi.double() * r.md.A.double()).sum()),
+            n_mesh_updates=r.n_mesh_updates, nV=r.mesh.nV,
+            outputs=read_outputs(out_dir, len(r.scalars_history)), **counts)
+        check_state(s, "cuda")
+        if C.transects_ANT:
+            tf = NCFile(os.path.join(out_dir, "transect_westeast.nc"))
+            gl = tf.read("grounding_line_distance_from_start")
+            f32["transect_file"] = dict(
+                frames=tf.dims()["time"], n=tf.dims()["n"],
+                x_GL_km=[float(v) / 1e3 for v in gl])
+            assert tf.dims()["time"] == len(r.scalars_history)
+            assert np.isfinite(gl).all()
+        # f64 on the card over the compared years
+        C64 = Config(**dict(cfg, tpu_precision="f64"))
+        r64 = resume_region(C64, MP_RESTART, "cuda",
+                            os.path.join(workdir, f"{phase}_f64"))
+        bmb64 = r64.BMB.double().cpu()
+        ice1r_start(r64)
+        with contextlib.redirect_stdout(sys.stderr):
+            r64.run_to(t_cmp)
+        card = resume_snapshot(r64)
+        cpu_snap, cpu_wait_s = finish_cpu_job(cpu, cpu_out, phase)
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait()
+    cpu_run = cpu_snap.pop("run")
+    bmb_cpu = cpu_snap.pop("BMB_first")
+    gaps = {k: float((cpu_snap[k] - card[k]).abs().max()
+                     / cpu_snap[k].abs().max()) for k in RESUME_FIELDS}
+    bmb_gap = float((bmb_cpu - bmb64).abs().max()
+                    / max(float(bmb_cpu.abs().max()), 1e-300))
+    out = dict(restart=os.path.relpath(MP_RESTART), years=years, f32=f32,
+               card_cpu_f64=dict(t=t_cmp, **{
+                   k: [cpu_snap[k], card[k]]
+                   for k in ("steps", "n_visc_its", "n_Axb_its")},
+                   rel_gap=gaps, first_BMB_rel_gap=bmb_gap,
+                   first_BMB_max_melt=float(-bmb_cpu.min()),
+                   cpu_run=cpu_run, cpu_wait_s=cpu_wait_s))
+    say(phase, **out)
+    assert f32["steps"] >= years and f32["ice_volume_m3"] > 0.0
+    assert counts["diva_apply_launches"] > 0 \
+        and counts["stack_spmv_launches"] > 0, \
+        f"the {phase} path did not go through the kernels"
+    assert all(np.isfinite(x) for x in x_GL) and melt[-1] < 0.0
+    assert [cpu_snap[k] for k in ("steps", "n_visc_its", "n_Axb_its")] \
+        == [card[k] for k in ("steps", "n_visc_its", "n_Axb_its")], out
+    assert gaps["Hi"] < 1e-6 and gaps["u_vav_b"] < 1e-5 \
+        and gaps["v_vav_b"] < 1e-5, gaps
+    assert bmb_gap < 1e-12 and float(bmb_cpu.min()) < 0.0, bmb_gap
+    return out
+
+
+def berends_roughness(V):
+    """The experiment-II till friction angle [degrees] at points V [n, 2]
+    (a Gaussian trough on the channel axis; the JAX package's
+    integrated_tests.py _berends_exp_II_roughness, from the reference's
+    AA_create_experiment_II_data.m:20-26)."""
+    phi_min, phi_max = 0.2, 2.0
+    x_c, sig_x, sig_y = 400e3, 150e3, 15e3
+    return phi_max - (phi_max - phi_min) * np.exp(
+        -0.5 * (((V[:, 0] - x_c) / sig_x) ** 2 + (V[:, 1] / sig_y) ** 2))
+
+
+def write_berends_roughness(path, resolution):
+    """The true roughness as an x/y NetCDF classic file at half the
+    resolution (as the harness writes it)."""
+    from ufemism2_tpu_torch.io.ncio import NCFile
+    gx = np.arange(0.0, 800e3 + 1, resolution / 2)
+    gy = np.arange(-40e3, 40e3 + 1, resolution / 2)
+    GX, GY = np.meshgrid(gx, gy, indexing="ij")
+    phi = berends_roughness(np.stack([GX.ravel(), GY.ravel()], 1))
+    with NCFile(path, "w") as nc:
+        nc.def_dim("x", len(gx))
+        nc.def_dim("y", len(gy))
+        nc.def_var("x", ("x",), units="m")
+        nc.put("x", gx)
+        nc.def_var("y", ("y",), units="m")
+        nc.put("y", gy)
+        nc.def_var("till_friction_angle", ("x", "y"), units="degrees")
+        nc.put("till_friction_angle", phi.reshape(GX.shape))
+    return path
+
+
+def p95(x):
+    """95 % of |x| lies within this (the harness's _p95)."""
+    return float(np.percentile(np.abs(np.asarray(x)), 95))
+
+
+def r95(target, inverted):
+    """95 % of the inverted values lie within this factor of their target
+    (the harness's _r95)."""
+    ratio = np.asarray(inverted, float) / np.asarray(target, float)
+    ratio = np.maximum(ratio, 1.0 / np.maximum(ratio, 1e-30))
+    return float(np.percentile(ratio, 95))
+
+
+def exp2_chain(base, legs, device, workdir, timed=False):
+    """Berends et al. (2023) experiment II, 'dHdt_invfric_invBMB', as the
+    JAX package's harness chains it (integrated_tests.py:1142-1260): three
+    regions on one mesh, each started from the previous leg's thickness.
+    Returns (per-leg numbers, the harness's metrics, the last region, the
+    fields the card is held to). `timed`: time every nudging event and
+    count its launches."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.core.ice.geometry import (
+        ice_surface_elevation, thickness_above_flotation)
+    from ufemism2_tpu_torch.main.region import ModelRegion
+    from ufemism2_tpu_torch.mesh import build_mesh_from_config
+    from ufemism2_tpu_torch.ops import cuda_spmv
+    os.makedirs(workdir, exist_ok=True)
+    rough = write_berends_roughness(
+        os.path.join(workdir, "exp_II_bed_roughness.nc"),
+        base["maximum_resolution_uniform"])
+    leg1 = dict(base, choice_bed_roughness="read_from_file",
+                filename_bed_roughness_ANT=rough)
+    mesh = build_mesh_from_config(Config(**leg1), "ANT")
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def start_from(r, Hi0):
+        Hi = torch.as_tensor(Hi0, dtype=r.md.A.dtype, device=r.device)
+        Hs = ice_surface_elevation(Hi, r.state.Hb, r.state.SL)
+        r.state = r.state.replace(
+            Hi=Hi, Hi_prev=Hi, Hi_next=Hi, Hs=Hs, Hib=Hs - Hi,
+            TAF=thickness_above_flotation(Hi, r.state.Hb, r.state.SL))
+
+    def run_leg(name, over, years, prepare=None):
+        C = Config(**dict(leg1 if name != "leg3" else base, **over,
+                          end_time_of_run=years))
+        r = ModelRegion(C, "ANT", mesh=mesh, device=device)
+        if prepare is not None:
+            prepare(r)
+        nudge = {"n": 0, "s": 0.0, "launches": 0}
+        if timed and r.do_nudging:
+            inner = r._nudge_bed_roughness
+
+            def nudge_timed(*a):
+                sync()
+                n0 = cuda_spmv.launches + cuda_spmv.diva_launches
+                t = time.perf_counter()
+                inner(*a)
+                sync()
+                nudge["s"] += time.perf_counter() - t
+                nudge["n"] += 1
+                nudge["launches"] += (cuda_spmv.launches
+                                      + cuda_spmv.diva_launches - n0)
+            r._nudge_bed_roughness = nudge_timed
+        sync()
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            r.run_to(years)
+        sync()
+        wall = time.perf_counter() - t0
+        s = r.state
+        legs_out[name] = dict(
+            years=years, steps=r.n_dt_ice, n_visc_its=s.n_visc_its,
+            n_Axb_its=s.n_Axb_its, wall_s=wall,
+            sim_yr_per_hr=years / wall * 3600.0,
+            ms_per_krylov_it=wall * 1e3 / max(s.n_Axb_its, 1),
+            nudging_events=r.nudging_events, **read_counts())
+        if timed and r.do_nudging:
+            legs_out[name].update(nudging_s=nudge["s"],
+                                  nudging_launches=nudge["launches"])
+        return r
+
+    legs_out = {}
+    r1 = run_leg("leg1", {}, legs[0])
+    phi_true = r1.state.bed_roughness.double().cpu().numpy()
+    host = {k: getattr(r1.state, k).double().cpu().numpy()
+            for k in ("Hi", "Hb", "Hs")}
+    mask_a = (host["Hs"] > 2.0) \
+        & r1.state.mask_grounded_ice.cpu().numpy()
+    r2 = run_leg("leg2", dict(choice_BMB_model_ANT="idealised",
+                              choice_BMB_model_idealised="MISMIP+"),
+                 legs[1], lambda r: start_from(r, host["Hi"]))
+    Hi_ret = r2.state.Hi.double().cpu().numpy()
+    dHdt_ret = r2.state.dHi_dt.double().cpu().numpy()
+    BMB_ret = r2.BMB.double().cpu().numpy()
+
+    def leg3_start(r):
+        r.refgeo_PD = (Hi_ret, host["Hb"])
+        start_from(r, Hi_ret)
+        r.state = r.state.replace(dHi_dt_target=torch.as_tensor(
+            dHdt_ret, dtype=r.md.A.dtype, device=r.device))
+
+    r3 = run_leg("leg3", dict(
+        choice_bed_roughness="uniform",
+        slid_ZI_phi_fric_uniform=float(phi_true.mean()),
+        do_bed_roughness_nudging=True,
+        choice_bed_roughness_nudging_method="H_dHdt_flowline",
+        choice_BMB_model_ANT="inverted", do_target_dHi_dt=True),
+        legs[2], leg3_start)
+    phi_inv = r3.state.bed_roughness.double().cpu().numpy()
+    BMB_inv = r3.BMB.double().cpu().numpy()
+    shelf = r3.state.mask_floating_ice.cpu().numpy()
+    Hs_ret = ice_surface_elevation(
+        torch.from_numpy(Hi_ret), torch.from_numpy(host["Hb"]),
+        r3.state.SL.double().cpu()).numpy()
+    # the harness's metrics over grounded ice above 2 m at the end of leg
+    # 1 (none where the cut spin-up has no such ice)
+    grounded = mask_a.any()
+    metrics = dict(
+        grounded_vertices=int(mask_a.sum()),
+        r95_till_friction_angle=r95(phi_true[mask_a], phi_inv[mask_a])
+        if grounded else None,
+        p95_ice_thickness=p95(r3.state.Hs.double().cpu().numpy()[mask_a]
+                              - Hs_ret[mask_a]) if grounded else None,
+        p95_BMB_shelf=p95(BMB_inv[shelf] - BMB_ret[shelf])
+        if shelf.any() else None)
+    fields = dict(phi_true=phi_true, phi_inv=phi_inv, BMB_inv=BMB_inv,
+                  BMB_ret=BMB_ret, Hi=r3.state.Hi.double().cpu().numpy(),
+                  u_vav_b=r3.state.u_vav_b.double().cpu().numpy())
+    return dict(nV=mesh.nV, nTri=mesh.nTri, legs=legs_out), metrics, r3, \
+        fields
+
+
+def cpu_exp2_snapshot(workdir, snapshot_path, share="4"):
+    """SMALL_EXP2's chain on the CPU (plain versions), its numbers and
+    fields saved to snapshot_path; small_berends_phase runs this in a
+    process of its own, on 1/`share` of the cores."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // int(share)))
+    t0 = time.perf_counter()
+    numbers, metrics, _, fields = exp2_chain(SMALL_EXP2, SMALL_EXP2_LEGS,
+                                             "cpu", workdir)
+    torch.save(dict(numbers=numbers, metrics=metrics, fields=fields,
+                    seconds=time.perf_counter() - t0), snapshot_path)
+
+
+def berends_exp2_phase(workdir):
+    """EXP2 on the card in f32: the three legs with their steps, counts,
+    wall and launches, the nudging events timed with their launches, and
+    the harness's metrics (reported; the legs are cut, so no limit)."""
+    d = os.path.join(workdir, "berends_exp2")
+    os.makedirs(d, exist_ok=True)
+    numbers, metrics, r3, _ = exp2_chain(EXP2, EXP2_LEGS, "cuda", d,
+                                         timed=True)
+    out = dict(numbers, metrics=metrics, legs_years=EXP2_LEGS)
+    say("berends_exp2", **out)
+    check_state(r3.state, "cuda")
+    legs = numbers["legs"]
+    for name, leg in legs.items():
+        assert leg["steps"] >= 1 and leg["diva_apply_launches"] > 0 \
+            and leg["stack_spmv_launches"] > 0, (name, leg)
+    assert legs["leg3"]["nudging_events"] \
+        == int(EXP2_LEGS[2] // EXP2["bed_roughness_nudging_dt"]) > 0
+    assert metrics["grounded_vertices"] > 0
+    return out
+
+
+def start_small_berends_cpu(workdir):
+    """The CPU's chain that small_berends_phase holds the card to, started
+    in a process of its own: (process, the path of its result)."""
+    d = os.path.join(workdir, "small_berends")
+    os.makedirs(d, exist_ok=True)
+    cpu_out = os.path.join(d, "cpu.pt")
+    return start_cpu_job("cpu_exp2_snapshot", os.path.join(d, "cpu"),
+                         cpu_out, "4"), cpu_out
+
+
+def small_berends_phase(workdir, cpu_job):
+    """SMALL_EXP2's chain on the card and on the CPU (cpu_job, from
+    start_small_berends_cpu), f64: equal steps and counts in every leg,
+    the nudged roughness and the inverted BMB within 1e-10 relative,
+    thickness and velocity within small_phase's gaps."""
+    d = os.path.join(workdir, "small_berends")
+    cpu, cpu_out = cpu_job
+    try:
+        t0 = time.perf_counter()
+        numbers, metrics, r3, fields = exp2_chain(
+            SMALL_EXP2, SMALL_EXP2_LEGS, "cuda", os.path.join(d, "card"))
+        card_s = time.perf_counter() - t0
+        snap, cpu_wait_s = finish_cpu_job(cpu, cpu_out, "small_berends")
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait()
+
+    def gap(k):
+        a, b = snap["fields"][k], fields[k]
+        return float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-300))
+    gaps = {k: gap(k) for k in ("phi_true", "phi_inv", "BMB_inv", "Hi",
+                                "u_vav_b")}
+    keys = ("steps", "n_visc_its", "n_Axb_its", "nudging_events")
+    counts = {leg: {k: [snap["numbers"]["legs"][leg][k],
+                        numbers["legs"][leg][k]] for k in keys}
+              for leg in numbers["legs"]}
+    out = dict(nV=numbers["nV"], nTri=numbers["nTri"],
+               legs_years=SMALL_EXP2_LEGS, counts=counts, rel_gap=gaps,
+               metrics=[snap["metrics"], metrics], seconds_card=card_s,
+               seconds_cpu=snap["seconds"], cpu_wait_s=cpu_wait_s,
+               launches={leg: {k: numbers["legs"][leg][k] for k in (
+                   "diva_apply_launches", "stack_spmv_launches")}
+                   for leg in numbers["legs"]})
+    say("small_berends", **out)
+    check_state(r3.state, "cuda")
+    for leg, c in counts.items():
+        assert all(a == b for a, b in c.values()), (leg, c)
+    assert numbers["legs"]["leg3"]["nudging_events"] > 0
+    assert float(np.abs(fields["BMB_inv"]).max()) > 0.0
+    assert max(gaps["phi_inv"], gaps["BMB_inv"], gaps["phi_true"]) \
+        <= 1e-10, gaps
+    assert gaps["Hi"] < 1e-6 and gaps["u_vav_b"] < 1e-5, gaps
+    return out
+
+
+def synthetic_geothermal_flux(path):
+    """A global lon/lat geothermal heat flux file [W m^-2] in the layout
+    and with the field of tools/gen_antarctica_synthetic.py, written as
+    NetCDF classic."""
+    from ufemism2_tpu_torch.io.ncio import NCFile
+    lon = np.linspace(0.0, 358.0, 180)
+    lat = np.linspace(-90.0, 90.0, 91)
+    LON, LAT = np.meshgrid(lon, lat, indexing="ij")
+    hflux = (0.054 + 0.012 * np.cos(np.deg2rad(LAT))
+             + 0.008 * np.sin(2 * np.deg2rad(LON)) * np.cos(np.deg2rad(LAT)))
+    with NCFile(path, "w") as nc:
+        nc.def_dim("lon", len(lon))
+        nc.def_dim("lat", len(lat))
+        nc.def_var("lon", ("lon",))
+        nc.put("lon", lon)
+        nc.def_var("lat", ("lat",))
+        nc.put("lat", lat)
+        nc.def_var("hflux", ("lon", "lat"))
+        nc.put("hflux", hflux)
+    return path
+
+
+def synthetic_smb(path):
+    """An x/y SMB file [m ice / yr] over SMALL's domain: accumulation
+    falling towards the margin."""
+    from ufemism2_tpu_torch.io.ncio import NCFile
+    x = np.linspace(-1000e3, 1000e3, 81)
+    y = np.linspace(-1000e3, 1000e3, 61)
+    X, Y = np.meshgrid(x, y, indexing="ij")
+    smb = 0.5 - 0.4 * np.hypot(X, Y) / 1.5e6
+    with NCFile(path, "w") as nc:
+        nc.def_dim("x", len(x))
+        nc.def_dim("y", len(y))
+        nc.def_var("x", ("x",))
+        nc.put("x", x)
+        nc.def_var("y", ("y",))
+        nc.put("y", y)
+        nc.def_var("SMB", ("y", "x"))
+        nc.put("SMB", smb.T)
+    return path
+
+
+def small_thermo_files_phase(workdir, mesh_s):
+    """SMALL_THERMO with the geothermal flux read from a lon/lat file and
+    the SMB from an x/y file, card against CPU as small_phase holds them;
+    heat_columns' launches counted on the card's run."""
+    from ufemism2_tpu_torch.config import Config
+    Cs = Config(**dict(
+        SMALL_THERMO, choice_geothermal_heat_flux="read_from_file",
+        filename_geothermal_heat_flux=synthetic_geothermal_flux(
+            os.path.join(workdir, "ghf_lonlat.nc")),
+        choice_SMB_model_ANT="prescribed",
+        filename_SMB_prescribed_ANT=synthetic_smb(
+            os.path.join(workdir, "smb_xy.nc"))))
+    zero_counts()
+    small_phase("small_thermo_files", Cs, mesh_s)
+    counts = read_counts()
+    say("small_thermo_files_launches", **counts)
+    assert counts["heat_columns_launches"] > 0 \
+        and counts["diva_apply_launches"] > 0, counts
+    return counts
+
 
 
 def check_state(state, device_type):
@@ -1877,6 +2446,36 @@ def main():
         small_remesh_phase(workdir, mesh_s_small)
         mpr = mismipplus_resume_phase(workdir)
 
+    # -- 15. Berends et al. (2023) experiment II, 16. MISMIP+ ice1r, 17.
+    # Favier et al. (2019) melt, 18. the experiment II chain at 40 km card
+    # against CPU, 19. thermodynamics and SMB from files; the CPU runs that
+    # 16, 17 and 18 are held to go on beside the card's runs from the start
+    with tempfile.TemporaryDirectory() as workdir:
+        jobs = [start_retreat_cpu("mismipplus_ice1r", "MP_ICE1R", workdir),
+                start_retreat_cpu("mismipplus_favier", "MP_FAVIER", workdir),
+                start_small_berends_cpu(workdir)]
+        try:
+            ex2 = berends_exp2_phase(workdir)
+            ir = retreat_phase("mismipplus_ice1r", "MP_ICE1R", IR_YEARS,
+                               workdir, jobs[0])
+            fav = retreat_phase("mismipplus_favier", "MP_FAVIER", 1.0,
+                                workdir, jobs[1])
+            small_berends_phase(workdir, jobs[2])
+            stf = small_thermo_files_phase(workdir, mesh_s_small)
+        finally:
+            for proc, _ in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    ir_pins = (IR_STEPS, IR_VISC_ITS, IR_AXB_ITS)
+    ir_got = tuple(ir["f32"][k] for k in ("steps", "n_visc_its",
+                                          "n_Axb_its"))
+    assert ir_got == ir_pins, \
+        (f"the f32 ice1r trajectory moved: {ir_got} (expected {ir_pins})")
+    new_paths = {"mismipplus_ice1r": ir["f32"], "mismipplus_favier":
+                 fav["f32"], **{f"berends_exp2_{k}": v for k, v in
+                                ex2["legs"].items()}}
+
     kernels = [{
         "name": "stack_spmv", "route": "cuda",
         "source": "ufemism2_tpu_torch/csrc/stack_spmv.cu",
@@ -1887,7 +2486,11 @@ def main():
                              "mismipplus": mp["stack_spmv_launches"],
                              "remesh": rm["stack_spmv_launches"],
                              "mismipplus_resume":
-                                 mpr["stack_spmv_launches"]},
+                                 mpr["stack_spmv_launches"],
+                             **{k: v["stack_spmv_launches"]
+                                for k, v in new_paths.items()},
+                             "small_thermo_files":
+                                 stf["stack_spmv_launches"]},
         "max_abs_err": hot["max_abs_err"], "ms": hot["ms"],
         "device_ms": hot["device_ms"],
         "plain_ms": hot["plain_ms"], "bound_ms": hot["bound_ms"],
@@ -1904,7 +2507,11 @@ def main():
                              "mismipplus": mp["diva_apply_launches"],
                              "remesh": rm["diva_apply_launches"],
                              "mismipplus_resume":
-                                 mpr["diva_apply_launches"]},
+                                 mpr["diva_apply_launches"],
+                             **{k: v["diva_apply_launches"]
+                                for k, v in new_paths.items()},
+                             "small_thermo_files":
+                                 stf["diva_apply_launches"]},
         "max_abs_err": hot_diva["max_abs_err"], "ms": hot_diva["ms"],
         "device_ms": hot_diva["device_ms"],
         "plain_ms": hot_diva["plain_ms"], "bound_ms": hot_diva["bound_ms"],
@@ -1921,7 +2528,9 @@ def main():
                              "halfar": halfar["heat_columns_launches"],
                              "remesh": rm["heat_columns_launches"],
                              "mismipplus_resume":
-                                 mpr["heat_columns_launches"]},
+                                 mpr["heat_columns_launches"],
+                             "small_thermo_files":
+                                 stf["heat_columns_launches"]},
         "max_abs_err": hot_heat["max_abs_err"], "ms": hot_heat["ms"],
         "device_ms": hot_heat["device_ms"],
         "plain_ms": hot_heat["plain_ms"], "bound_ms": hot_heat["bound_ms"],

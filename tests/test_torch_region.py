@@ -124,10 +124,10 @@ def test_default_device_is_the_card(env):
 
 
 @pytest.mark.parametrize("over, word", [
-    (dict(choice_thermo_model="3D_heat_equation",
-          choice_geothermal_heat_flux="read_from_file"),
-     "choice_geothermal_heat_flux"),
-    (dict(transects_ANT="westeast"), "transects_ANT"),
+    (dict(choice_climate_model_ANT="matrix"), "choice_climate_model"),
+    (dict(choice_tracer_tracking_model="particles"),
+     "choice_tracer_tracking_model"),
+    (dict(choice_BMB_model_ANT="laddie"), "A.17"),
     (dict(choice_SMB_model_ANT="IMAU-ITM"), "choice_SMB_model"),
     (dict(choice_BMB_model_ANT="laddie_py"), "choice_BMB_model"),
     (dict(choice_GIA_model="ELRA"), "choice_GIA_model"),
@@ -139,3 +139,36 @@ def test_unported_choices_raise_by_name(env, over, word):
     _, Ct = configs(**over)
     with pytest.raises(NotImplementedError, match=word):
         ModelRegion(Ct, "ANT", mesh=env.mesh_t, device="cpu")
+
+
+def test_transect_output_matches_jax(env, tmp_path):
+    """transects_ANT: two transects' output files, written at every output
+    event of a run with an output directory, against the JAX package's
+    (read back through the port's ncio; the JAX package's time and zeta are
+    HDF5 dimension scales there)."""
+    from ufemism2_tpu_torch.io.ncio import NCFile
+    over = dict(transects_ANT="westeast,dx=20e3||southnorth,dx=30e3",
+                dt_output=0.15)
+    Cj, Ct = configs(**over)
+    rj = JaxRegion(Cj, "ANT", mesh=env.mesh_j, output_dir=str(tmp_path / "j"))
+    rt = ModelRegion(Ct, "ANT", mesh=env.mesh_t, device="cpu",
+                     output_dir=str(tmp_path / "t"))
+    rj.run_to(0.35)
+    rt.run_to(0.35)
+    for tr in rj.transect_out:
+        tr.close()
+    for name in ("westeast", "southnorth"):
+        a = NCFile(tmp_path / "t" / f"transect_{name}.nc")
+        b = NCFile(tmp_path / "j" / f"transect_{name}.nc")
+        assert a.dims()["time"] == b.dims()["time"] == 3   # 0, 0.15, 0.3
+        assert sorted(a.variables()) == sorted(b.variables()
+                                               + ["time", "zeta"])
+        for v in a.variables():
+            va, vb = a.read(v), b.read(v)
+            nan = np.isnan(vb)
+            assert np.array_equal(np.isnan(va), nan), v
+            if (~nan).any():
+                assert np.abs(va[~nan] - vb[~nan]).max() <= 1e-12 * max(
+                    1.0, np.abs(vb[~nan]).max()), v
+        gl = a.read("grounding_line_distance_from_start")
+        assert np.isfinite(gl).all() and (gl > 0).all(), gl

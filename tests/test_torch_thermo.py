@@ -20,7 +20,7 @@ import torch
 import jax.numpy as jnp
 
 from torch_port_fixture import (configs, build_meshes, state_to_numpy,
-                                rel_gap)
+                                rel_gap, write_nc_pair)
 
 from ufemism2_tpu.core import mesh_data as jmd
 from ufemism2_tpu.core.ice import thermodynamics as jth
@@ -317,13 +317,36 @@ def test_make_heat_solver(env, precision, gl_bc):
     assert int(n_t) < int((~thin).sum())      # some columns were stable
 
 
-def test_geothermal_flux(env):
+def test_geothermal_flux(env, tmp_path):
+    """The uniform flux; the flux read from a global lon/lat file of W m^-2
+    (tools/gen_antarctica_synthetic.py's layout and field), remapped and
+    converted to J m^-2 yr^-1, on separate mesh data (the module's keeps
+    the uniform one); an unknown choice is refused."""
     assert env.geo_t.dtype == torch.float64
     _same(env.geo_t, env.geo_j, 0.0)
     assert env.mdt.x("geothermal") is env.geo_t
-    _, Ct = configs(**THERMO, choice_geothermal_heat_flux="read_from_file")
-    with pytest.raises(NotImplementedError, match="read_from_file"):
-        tth.make_geothermal_flux(Ct, env.mdt)
+    lon = np.linspace(0.0, 358.0, 180)
+    lat = np.linspace(-90.0, 90.0, 91)
+    LON, LAT = np.meshgrid(lon, lat, indexing="ij")
+    hflux = (0.054 + 0.012 * np.cos(np.deg2rad(LAT))
+             + 0.008 * np.sin(2 * np.deg2rad(LON)) * np.cos(np.deg2rad(LAT)))
+    fj, fc = write_nc_pair(tmp_path, "ghf", {"lon": 180, "lat": 91}, {
+        "lon": (("lon",), lon), "lat": (("lat",), lat),
+        "hflux": (("lon", "lat"), hflux)})
+    Cj, _ = configs(**THERMO, choice_geothermal_heat_flux="read_from_file",
+                    filename_geothermal_heat_flux=fj)
+    _, Ct = configs(**THERMO, choice_geothermal_heat_flux="read_from_file",
+                    filename_geothermal_heat_flux=fc)
+    mdj = jmd.build_mesh_data(env.mesh_j)
+    mdt = tmd.build_mesh_data(env.mesh_t, dtype=torch.float64, device="cpu")
+    geo_t = tth.make_geothermal_flux(Ct, mdt)
+    _same(geo_t, jth.make_geothermal_flux(Cj, mdj))
+    assert mdt.x("geothermal") is geo_t
+    spy = 31556943.36
+    assert 0.04 * spy < float(geo_t.min()) < float(geo_t.max()) < 0.08 * spy
+    _, Cx = configs(**THERMO, choice_geothermal_heat_flux="from_a_hat")
+    with pytest.raises(ValueError, match="from_a_hat"):
+        tth.make_geothermal_flux(Cx, mdt)
 
 
 def test_run_thermodynamics(env):

@@ -99,9 +99,10 @@ def test_thermo_config_refusals(env):
     _, Ct = configs(**THERMO, choice_climate_model_ANT="idealised")
     with pytest.raises(NotImplementedError, match="choice_climate_model"):
         ModelRegion(Ct, "ANT", mesh=env.mesh_t, device="cpu")
-    _, Ct = configs(**THERMO, choice_geothermal_heat_flux="read_from_file")
-    with pytest.raises(NotImplementedError,
-                       match="choice_geothermal_heat_flux"):
+    # (a geothermal flux read from a file is ported:
+    # tests/test_torch_thermo.py test_geothermal_flux)
+    _, Ct = configs(**dict(THERMO, choice_thermo_model="prescribed"))
+    with pytest.raises(NotImplementedError, match="choice_thermo_model"):
         ModelRegion(Ct, "ANT", mesh=env.mesh_t, device="cpu")
     if not torch.cuda.is_available():
         # the default device is the card, never the host

@@ -154,3 +154,63 @@ def ell_to_dense(M, op=0):
     out = np.zeros((M.n_rows, M.n_cols), M.vals.cpu().numpy().dtype)
     np.add.at(out, (rows, cols), M.vals[op].cpu().numpy())
     return out
+
+
+def write_nc(NC, path, dims, variables):
+    """A NetCDF file written through NCFile class NC (the JAX package's or
+    the port's) with dimensions {name: size} and variables
+    {name: (dims, data[, dtype])}; returns the path."""
+    with NC(str(path), "w") as nc:
+        for d, n in dims.items():
+            nc.def_dim(d, n)
+        for name, spec in variables.items():
+            nc.def_var(name, spec[0],
+                       dtype=spec[2] if len(spec) > 2 else "f8")
+            nc.put(name, np.asarray(spec[1]))
+    return str(path)
+
+
+def write_nc_pair(tmp_path, stem, dims, variables):
+    """The same file twice: (the JAX package's NetCDF4 file, the port's
+    NetCDF classic file)."""
+    from ufemism2_tpu.io.ncio import NCFile as JaxNC
+    from ufemism2_tpu_torch.io.ncio import NCFile as PortNC
+    return (write_nc(JaxNC, tmp_path / f"{stem}_nc4.nc", dims, variables),
+            write_nc(PortNC, tmp_path / f"{stem}_classic.nc", dims,
+                     variables))
+
+
+def ocean_snapshot_spec(T_shift=0.0, with_time=False):
+    """An x/y T/S snapshot over the MISMIP+ domain, NaN below a sea floor
+    that deepens towards the east, [depth, y, x] as ISMIP6 files hold
+    it; with_time: three frames of anomalies instead."""
+    x = np.linspace(-10e3, 810e3, 42)
+    y = np.linspace(-50e3, 50e3, 11)
+    depth = np.array([0.0, 100.0, 250.0, 400.0, 600.0, 800.0, 1100.0,
+                      1500.0])
+    X, Y = np.meshgrid(x, y, indexing="ij")
+    floor = 300.0 + 1.2e-3 * X
+    T = (-1.9 + 2.5 * np.tanh(depth / 500.0))[:, None, None] \
+        + 1e-6 * X[None] + 1e-5 * Y[None] + T_shift
+    S = (33.8 + 9e-4 * depth)[:, None, None] + 0.0 * X[None]
+    T[depth[:, None, None] > floor[None]] = np.nan
+    S[depth[:, None, None] > floor[None]] = np.nan
+    dims = {"x": len(x), "y": len(y), "depth": len(depth)}
+    variables = {"x": (("x",), x), "y": (("y",), y),
+                 "depth": (("depth",), depth)}
+    if with_time:
+        t = np.array([0.0, 10.0, 20.0])
+        dims["time"] = 3
+        variables["time"] = (("time",), t)
+        variables["temperature_anomaly"] = (
+            ("time", "depth", "y", "x"), np.stack(
+                [np.swapaxes(np.nan_to_num(T) * 0.0 + 0.3 * k + 1e-7 * X[None],
+                             1, 2) for k in range(3)]))
+        variables["salinity_anomaly"] = (
+            ("time", "depth", "y", "x"), np.stack(
+                [np.swapaxes(np.nan_to_num(S) * 0.0 - 0.05 * k, 1, 2)
+                 for k in range(3)]))
+    else:
+        variables["T_ocean"] = (("depth", "y", "x"), np.swapaxes(T, 1, 2))
+        variables["S_ocean"] = (("depth", "y", "x"), np.swapaxes(S, 1, 2))
+    return dims, variables

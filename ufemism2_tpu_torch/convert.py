@@ -94,3 +94,28 @@ def extra_tables_from_numpy(md, tables: dict):
         md.extras[name] = (EIndex(t, spec[1], spec[2]) if len(spec) == 3
                            else EField(t, spec[1]))
     return md
+
+
+def component_state_from_numpy(region, fields: dict, device, dtype):
+    """Set a region's host-held component state from plain numpy, so that
+    a region built elsewhere and this one start equal. Keys (each
+    optional): 'bed_roughness' (the BedRoughnessState's field, also
+    written into the ice state), 'BMB_inverted' (the inverted BMB's
+    cache), 'ocean_deltaT' and 'ocean_t_prev' (the snapshot+nudge2D
+    ocean's offset and the time of its last nudge)."""
+    from .models.bed_roughness import BedRoughnessState
+    device = resolve_device(device)
+    if "bed_roughness" in fields:
+        br = _tensor(fields["bed_roughness"], device, dtype)
+        region.bed_roughness_state = BedRoughnessState(generic=br)
+        region.state = region.state.replace(bed_roughness=br)
+    if "BMB_inverted" in fields:
+        region.run_bmb.cache["BMB"] = _tensor(fields["BMB_inverted"],
+                                              device, dtype)
+    if "ocean_deltaT" in fields:
+        region.run_ocean.deltaT = _tensor(fields["ocean_deltaT"], device,
+                                          dtype)
+    if "ocean_t_prev" in fields:
+        t = fields["ocean_t_prev"]
+        region.run_ocean._t_prev = None if t is None else float(t)
+    return region

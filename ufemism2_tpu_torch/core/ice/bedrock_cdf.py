@@ -216,6 +216,14 @@ def build_bedrock_cdfs_from_config(C, mesh, region: str):
                                                             which="init")
         return calc_bedrock_cdfs(mesh, x, y, Hb, nbins)
     if choice == "read_from_file":
-        raise NotImplementedError(
-            "bedrock CDFs from a geometry file are not ported yet")
+        # the initial-geometry file's bedrock grid; none where the file
+        # cannot be read or holds no Hb (as the JAX package has it)
+        from ...io.input_files import read_geometry_grid_raw
+        try:
+            x, y, fields = read_geometry_grid_raw(C, region, which="init")
+        except (OSError, KeyError, ValueError):
+            return None
+        if "Hb" not in fields:
+            return None
+        return calc_bedrock_cdfs(mesh, x, y, fields["Hb"], nbins)
     return None

@@ -291,8 +291,11 @@ def make_heat_solver(C, md: MeshData):
         c_d2dzeta2 = -Ki / (ice_density * Cpi) * dzz ** 2
         rhs = -u_dTdx_up - v_dTdy_up + Phi / (ice_density * Cpi)
         # the flux part of the grounded basal row; Ti only enters it after
-        # this quotient, so it is the same for every substep
-        q_base = dz_base * Q_base_grnd / (dzz[:, nz - 1] * Ki[:, nz - 1])
+        # this quotient, so it is the same for every substep (float32 where
+        # a file's flux keeps the run's float32 type, then widened as the
+        # reference's float64 system widens it)
+        q_base = (dz_base * Q_base_grnd
+                  / (dzz[:, nz - 1] * Ki[:, nz - 1])).to(torch.float64)
         T_robin = robin_solution(C, md, Hi_eff, Ti_pmp, masks, T_surf,
                                  SMB, geothermal)
         thin = Hi_eff < C.Hi_min_thermo
@@ -306,16 +309,22 @@ def make_heat_solver(C, md: MeshData):
 
 
 def make_geothermal_flux(C, md: MeshData):
-    """Geothermal heat flux [J m^-2 yr^-1] on the a-grid, float64 in either
-    precision (the reference's default array type), registered in
-    md.extras["geothermal"]."""
+    """Geothermal heat flux [J m^-2 yr^-1] on the a-grid, registered in
+    md.extras["geothermal"]: the uniform value in float64 in either
+    precision (the reference's default array type), a field read from a
+    file in the run's type."""
     if C.choice_geothermal_heat_flux == "uniform":
         ghf = torch.full((md.nV,), C.uniform_geothermal_heat_flux,
                          dtype=torch.float64, device=md.device)
     elif C.choice_geothermal_heat_flux == "read_from_file":
-        raise NotImplementedError(
-            "choice_geothermal_heat_flux 'read_from_file' is not ported yet "
-            "(reading input files; ported: uniform)")
+        # the file holds 'hflux' in W m^-2 = J m^-2 s^-1: remapped to the
+        # mesh and converted to J m^-2 yr^-1 (geothermal_heat_flux.f90:
+        # 50-61), in the run's type as the JAX package has it
+        from ...io.input_files import read_field_from_file_2D
+        from ...utils.constants import sec_per_year
+        ghf = torch.as_tensor(read_field_from_file_2D(
+            C.filename_geothermal_heat_flux, "hflux", md._host_mesh),
+            dtype=md.A.dtype, device=md.device) * sec_per_year
     else:
         raise ValueError("unknown choice_geothermal_heat_flux "
                          f"'{C.choice_geothermal_heat_flux}'")

@@ -349,3 +349,61 @@ def _hdf5_dims(name, ds):
         dims[0] = name      # a bare 1-D dataset is its own coordinate
     return tuple(d if d is not None else f"phony_dim_{ds.shape[i]}"
                  for i, d in enumerate(dims))
+
+
+# -- field-name aliases -------------------------------------------------------
+# The reference's accepted input spellings (netcdf_field_name_options.f90:
+# 83-150, '||'-separated options), so the same input files load in the port
+# and in the reference.
+
+FIELD_ALIASES = {
+    "x": ["x", "X", "x1", "X1", "nx", "NX", "x-coordinate", "X-coordinate",
+          "easting", "Easting"],
+    "y": ["y", "Y", "y1", "Y1", "ny", "NY", "y-coordinate", "Y-coordinate",
+          "northing", "Northing"],
+    "zeta": ["zeta", "Zeta"],
+    "lon": ["lon", "Lon", "long", "Long", "longitude", "Longitude"],
+    "lat": ["lat", "Lat", "latitude", "Latitude"],
+    "time": ["time", "Time", "t", "nt"],
+    "month": ["month", "Month"],
+    "depth": ["depth", "Depth"],
+    "Hi": ["Hi", "thickness", "lithk", "ice_thickness"],
+    "Hb": ["Hb", "bed", "topg", "bed_topography"],
+    "Hs": ["Hs", "surface", "orog", "surface_topography"],
+    "SL": ["SL", "sealevel"],
+    "dHdt": ["dHdt", "dHi_dt"],
+    "hflux": ["hflux", "GHF", "ghf", "geothermal_heat_flux"],
+    "dHb": ["dHb"],
+    "Ti": ["Ti"],
+    "T_ocean": ["T_ocean", "t_ocean", "t_an", "votemper"],
+    "S_ocean": ["S_ocean", "s_ocean", "s_an", "vosaline"],
+    "dT_ocean": ["dT", "dT_ocean", "dTo"],
+    "dT_atmosphere": ["dT", "dT_atmosphere", "dT_atm", "dTa"],
+    "insolation": ["Q_TOA"],
+    "sealevel": ["SL", "sea_level", "sl"],
+    "GI": ["GI", "gi", "Glacial_Index", "glacial_index", "GlacialIndex"],
+    "CO2": ["CO2", "co2"],
+    "T2m": ["T2m", "T_2m", "Temp", "temp", "temperature", "tas"],
+    "Precip": ["Precip", "precip", "precipitation", "pr"],
+    "SMB": ["SMB", "smb", "acab"],
+    "BMB": ["BMB", "bmb", "libmassbf"],
+}
+
+
+def resolve_field_name(nc: NCFile, canonical: str):
+    """The name under which a canonical field appears in the file, or None.
+    `canonical` may itself be a '||'-separated list of acceptable names
+    (the reference passes such strings straight through)."""
+    if "||" in canonical:
+        options = canonical.split("||")
+    else:
+        options = FIELD_ALIASES.get(canonical, [canonical])
+    return next((a for a in options if nc.has(a)), None)
+
+
+def find_field(nc: NCFile, canonical: str):
+    """A field's data, found through its accepted aliases."""
+    name = resolve_field_name(nc, canonical)
+    if name is None:
+        raise KeyError(f"no variable matching '{canonical}' in {nc.path}")
+    return nc.read(name)

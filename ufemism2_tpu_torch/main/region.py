@@ -6,17 +6,23 @@ advance_region_time_to_time_of_next_action, :354-435) runs on the host;
 the per-step field work (PC ice dynamics, component models) runs on one
 device. Mesh building, remapping and file output are host-side events.
 
-This slice covers a mesh built from an idealised geometry and the
-adaptive mesh updates that rebuild it from the evolving geometry, the
-stress balances none/SIA/SSA/DIVA/SIA+SSA (with the ocean-pressure
-calving front), uniform SMB/BMB/LMB/AMB, the 'none' climate, the 3-D heat
-equation with a uniform geothermal flux (fused into the ice-step loop as
-the reference's make_pc_multistep does), a fixed or prescribed sea level,
-the MISMIP+ flow-factor tuning slot, the output (the scalars in
+The port covers a mesh built from an idealised geometry or a geometry
+file and the adaptive mesh updates that rebuild it from the evolving
+geometry, the stress balances none/SIA/SSA/DIVA/SIA+SSA (with the
+ocean-pressure calving front), every ocean model, the SMB, BMB, LMB and
+AMB models but those listed below, bed roughness (uniform, parameterised
+or read from a file) and its nudging, target thinning rates, the 'none'
+climate, the 3-D heat equation (fused into the ice-step loop as the
+reference's make_pc_multistep does), a fixed or prescribed sea level, the
+MISMIP+ flow-factor tuning slot, the output (the scalars in
 `scalars_history` and, with an output directory, the NetCDF mesh, grid,
-scalar, ISMIP and restart files of io/), restarts and the checksum log.
-Every other choice raises NotImplementedError at construction, naming
-the choice.
+scalar, transect, ISMIP and restart files of io/ and models/transects.py),
+restarts and the checksum log. What is still missing raises
+NotImplementedError at construction, naming the choice and its ROADMAP
+item: climates other than 'none' and the SMB models that need one
+(IMAU-ITM, snapshot_plus_anomalies, reconstructed; A.15), GIA and tracers
+(A.15), the ROI polygons (A.15), Salle2025 hydrology and the LADDIE melt
+(A.17), and more than one device (A.19).
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from ..core.idealised_geometries import calc_idealised_geometry
 from ..mesh import Mesh, build_mesh_from_config
 from ..mesh.creation import build_mesh_from_gridded_geometry
 from ..mesh.grids import setup_square_grid
+from ..io.input_files import read_field_from_file_2D, read_geometry_onto_mesh
 from ..io.output_files import (LINE_FIELDS, MESH_FIELDS_DEFAULT,
                                MeshOutputFile, ScalarOutputFile,
                                GridOutputFile, write_restart_file,
@@ -61,6 +68,12 @@ from ..models.bmb import make_run_bmb
 from ..models.lmb import make_run_lmb
 from ..models.amb import make_run_amb
 from ..models.climate import make_run_climate
+from ..models.ocean import make_run_ocean
+from ..models.bed_roughness import (BedRoughnessState, initial_bed_roughness,
+                                    make_run_bed_roughness_nudging)
+from ..models.transects import Transect, TransectOutputFile
+from ..core.ice.geometry import (ice_surface_elevation,
+                                 thickness_above_flotation)
 from ..utils.checksum import ChecksumLogger
 from ..utils.logging_utils import routine, happy, warning
 
@@ -77,36 +90,38 @@ def _require(C, key, allowed, what=None):
             + f"; ported: {', '.join(repr(a) for a in allowed)}")
 
 
+def _refuse(C, key, missing, what):
+    v = getattr(C, key)
+    if v in missing:
+        raise NotImplementedError(f"{key} = {v!r} is not ported yet ({what})")
+
+
 def _check_slice(C, name):
-    """Refuse, by name, every configuration choice this slice lacks."""
+    """Refuse, by name, every configuration choice the port still lacks."""
     _require(C, "choice_thermo_model", ("none", "3D_heat_equation"))
-    if C.choice_thermo_model == "3D_heat_equation":
-        _require(C, "choice_geothermal_heat_flux", ("uniform",),
-                 "reading input files")
-    _require(C, f"choice_refgeo_init_{name}", ("idealised",))
-    _require(C, f"choice_climate_model_{name}", ("none",))
-    _require(C, f"choice_ocean_model_{name}", ("none",))
-    _require(C, "choice_GIA_model", ("none",))
+    _require(C, f"choice_climate_model_{name}", ("none",),
+             "the climate chain, ROADMAP A.15")
+    _refuse(C, f"choice_SMB_model_{name}",
+            ("IMAU-ITM", "snapshot_plus_anomalies", "reconstructed"),
+            "it needs the climate chain, ROADMAP A.15")
+    _refuse(C, f"choice_BMB_model_{name}", ("laddie",),
+            "LADDIE, ROADMAP A.17")
+    _require(C, "choice_GIA_model", ("none",), "GIA, ROADMAP A.15")
     _require(C, "choice_sealevel_model", ("fixed", "prescribed"))
-    _require(C, "choice_bed_roughness", ("uniform",))
-    _require(C, "do_bed_roughness_nudging", (False,))
-    _require(C, "do_target_dHi_dt", (False,))
-    _require(C, "choice_tracer_tracking_model", ("none",))
+    _require(C, "choice_tracer_tracking_model", ("none",),
+             "tracers, ROADMAP A.15")
     _require(C, f"pc_choice_initialise_{name}", ("zero", "read_from_file"))
     _require(C, f"choice_initial_velocity_{name}", ("zero",))
-    _require(C, "tpu_n_devices", (1,), "multi-device runs")
+    _require(C, "tpu_n_devices", (1,), "multi-device runs, ROADMAP A.19")
     _require(C, "tpu_precision", ("f32", "f64"))
     if C.choice_basal_hydrology_model == "Salle2025":
         raise NotImplementedError(
-            "choice_basal_hydrology_model 'Salle2025' is not ported yet")
-    if getattr(C, f"transects_{name}"):
-        raise NotImplementedError(
-            f"transects_{name}: transect output is not ported yet "
-            "(ROADMAP A.15)")
+            "choice_basal_hydrology_model 'Salle2025' is not ported yet "
+            "(ROADMAP A.17)")
     if C.choice_regions_of_interest.strip():
         raise NotImplementedError(
             "choice_regions_of_interest: the ROI polygons and their scalar "
-            "files are not ported yet")
+            "files are not ported yet (ROADMAP A.15)")
 
 
 @dataclass
@@ -140,10 +155,16 @@ class ModelRegion:
                     "scalar")
 
             # initial geometry on the mesh vertices
-            Hi, Hb, Hs, SL = calc_idealised_geometry(
-                self.mesh.V[:, 0], self.mesh.V[:, 1],
-                C.choice_refgeo_init_idealised, C)
-            Hi = np.where(Hi < C.refgeo_Hi_min, 0.0, Hi)
+            choice = getattr(C, f"choice_refgeo_init_{self.name}")
+            if choice == "idealised":
+                Hi, Hb, Hs, SL = calc_idealised_geometry(
+                    self.mesh.V[:, 0], self.mesh.V[:, 1],
+                    C.choice_refgeo_init_idealised, C)
+                Hi = np.where(Hi < C.refgeo_Hi_min, 0.0, Hi)
+            elif choice == "read_from_file":
+                Hi, Hb, SL = read_geometry_onto_mesh(C, self.name, self.mesh)
+            else:
+                raise ValueError(f"unknown choice_refgeo_init '{choice}'")
             if C.choice_sealevel_model == "fixed":
                 # the reference overrides the geometry's SL with the
                 # configured fixed value at ice-model initialisation
@@ -156,8 +177,8 @@ class ModelRegion:
             self.state = self.state.replace(t_Hi_prev=self.time,
                                             t_Hi_next=self.time)
 
-            # present-day reference geometry (for alter_ice_thickness
-            # fixiness/limitness)
+            # present-day reference geometry (alter_ice_thickness's
+            # fixiness/limitness, the targets of the inversions)
             pd_choice = getattr(C, f"choice_refgeo_PD_{self.name}")
             if pd_choice == "idealised":
                 Hi_PD, Hb_PD, _, _ = calc_idealised_geometry(
@@ -166,25 +187,22 @@ class ModelRegion:
                 Hi_PD = np.where(Hi_PD < C.refgeo_Hi_min, 0.0, Hi_PD)
             elif pd_choice == "read_from_file" and os.path.exists(
                     getattr(C, f"filename_refgeo_PD_{self.name}")):
-                raise NotImplementedError(
-                    "choice_refgeo_PD 'read_from_file': reading geometry "
-                    "files is not ported yet")
+                Hi_PD, Hb_PD, _ = read_geometry_onto_mesh(
+                    C, self.name, self.mesh, which="PD")
             else:
                 # PD file absent (idealised test setups): fall back to the
                 # initial geometry as the PD reference.
                 Hi_PD, Hb_PD = np.asarray(Hi), np.asarray(Hb)
             self.refgeo_PD = (np.asarray(Hi_PD), np.asarray(Hb_PD))
 
-            # bed roughness: the uniform value of the chosen sliding law
-            rough = {"Weertman": C.slid_Weertman_beta_sq_uniform,
-                     "Coulomb": C.slid_Coulomb_phi_fric_uniform,
-                     "Budd": C.slid_Budd_phi_fric_uniform,
-                     "Tsai2015": C.slid_Tsai2015_beta_sq_uniform,
-                     "Schoof2005": C.slid_Schoof2005_beta_sq_uniform,
-                     "Zoet-Iverson": C.slid_ZI_phi_fric_uniform,
-                     }.get(C.choice_sliding_law, 1.0)
+            # bed roughness (nudged, where nudging is on, by the
+            # bed_roughness event)
+            self.bed_roughness_state = initial_bed_roughness(
+                C, self.md, region_name=self.name, Hb=Hb)
             self.state = self.state.replace(
-                bed_roughness=torch.full_like(self.state.Hi, rough))
+                bed_roughness=self.bed_roughness_state.generic)
+            self.do_nudging = C.do_bed_roughness_nudging
+            self.nudging_events = 0
 
             # thermodynamics: one step per dt_thermodynamics, caught up
             # after every ice step of run_to (the reference fuses it into
@@ -199,12 +217,21 @@ class ModelRegion:
 
             self.climate = self.run_climate(self.time, self.state)
             self._T_surf = self.climate["T2m"].mean(dim=1)
-            self.SMB = self.run_smb(self.time, self.state)
+            self.ocean = self.run_ocean(self.time, self.state)
+            self.SMB = self.run_smb(self.time, self.state,
+                                    climate=self.climate)
             m0, fg0 = self._masks_fracs(self.state.Hi, self.state.Hb,
                                         self.state.SL)
-            self.BMB = self.run_bmb(self.time, self.state, m0, fg0)
+            self.BMB = self.run_bmb(self.time, self.state, m0, fg0,
+                                    self.ocean)
             self.LMB = self.run_lmb(self.time, self.state, m0)
             self.AMB = self.run_amb(self.time, self.state)
+
+            # target thinning rates from a file (inversion spin-ups;
+            # initialise_dHi_dt_target, inversion_utilities.f90:32-90, and
+            # the SMB limit of UFEMISM_main_model.f90:1541-1547)
+            if C.do_target_dHi_dt:
+                self._read_dHi_dt_target()
 
             # initialise Ti
             ti_choice = getattr(C,
@@ -240,17 +267,21 @@ class ModelRegion:
                 self._sync()
 
             # event scheduling (UFEMISM_main_model.f90:598-609); the
-            # ocean ('none') event does nothing here but bound the ice
-            # windows as the reference's does. The checksum oracle fires
-            # on its own cadence (the fastest coupling interval)
+            # checksum oracle fires on its own cadence (the fastest
+            # coupling interval)
             t0 = self.time
             self.t_next = {"climate": t0, "ocean": t0, "SMB": t0, "BMB": t0,
-                           "LMB": t0, "output": t0, "output_restart": t0,
+                           "LMB": t0,
+                           "bed_roughness": (t0 + C.bed_roughness_nudging_dt)
+                           if self.do_nudging else _BIG,
+                           "output": t0, "output_restart": t0,
                            "checksum": t0 if C.do_write_checksum_log
                            else _BIG}
             self.dt_comp = {"climate": C.dt_climate, "ocean": C.dt_ocean,
                             "SMB": C.dt_SMB, "BMB": C.dt_BMB,
-                            "LMB": C.dt_LMB, "output": C.dt_output,
+                            "LMB": C.dt_LMB,
+                            "bed_roughness": C.bed_roughness_nudging_dt,
+                            "output": C.dt_output,
                             "output_restart": C.dt_output_restart,
                             "checksum": min(C.dt_SMB, C.dt_BMB)}
             self.n_dt_ice = 0
@@ -282,13 +313,17 @@ class ModelRegion:
         """Everything that holds the mesh's tables or device pointers:
         the component models, the bedrock CDFs, the PC step (with the
         stress-balance solver, its kernels' descriptors and the
-        preconditioner) and the thermodynamics closures. Built at
+        preconditioner), the nudging step and the thermodynamics closures. Built at
         construction and again after every mesh update, so that nothing
         keeps a pointer into a replaced mesh's tensors."""
         C = self.C
         self.run_climate = make_run_climate(C, self.md, self.name)
+        self.run_ocean = make_run_ocean(C, self.md, self.name,
+                                        mesh=self.mesh)
         self.run_smb = make_run_smb(C, self.md, self.name)
-        self.run_bmb = make_run_bmb(C, self.md, self.name)
+        self.run_bmb = make_run_bmb(
+            C, self.md, self.name,
+            target_geometry=self._bmb_target_geometry)
         self.run_lmb = make_run_lmb(C, self.md, self.name)
         self.run_amb = make_run_amb(C, self.md, self.name)
         self._bedrock_cdfs = _build_bedrock_cdfs(C, self.mesh, self.name,
@@ -297,6 +332,8 @@ class ModelRegion:
         self.pc_step = make_pc_step(C, self.md, refgeo_Hi=Hi_PD,
                                     refgeo_Hb=Hb_PD,
                                     bedrock_cdfs=self._bedrock_cdfs)
+        if self.do_nudging:
+            self._nudge_step = make_run_bed_roughness_nudging(C, self.md)
         if self.do_thermo:
             register_thermo_static(self.md)
             heat = make_heat_solver(C, self.md)
@@ -312,12 +349,42 @@ class ModelRegion:
         t = self.time
         self.climate = self.run_climate(t, self.state)
         self._T_surf = self.climate["T2m"].mean(dim=1)
-        self.SMB = self.run_smb(t, self.state)
+        self.ocean = self.run_ocean(t, self.state)
+        self.SMB = self.run_smb(t, self.state, climate=self.climate)
         m0, fg0 = self._masks_fracs(self.state.Hi, self.state.Hb,
                                     self.state.SL)
-        self.BMB = self.run_bmb(t, self.state, m0, fg0)
+        self.BMB = self.run_bmb(t, self.state, m0, fg0, self.ocean)
         self.LMB = self.run_lmb(t, self.state, m0)
         self.AMB = self.run_amb(t, self.state)
+
+    def _read_dHi_dt_target(self):
+        """dHi_dt_target from filename_dHi_dt_target_<R> (the timeframe
+        timeframe_dHi_dt_target_<R>, or the first), limited by the SMB
+        where do_limit_target_dHi_dt_to_SMB; nothing without a file."""
+        C = self.C
+        fname = getattr(C, f"filename_dHi_dt_target_{self.name}", "")
+        if not (fname and os.path.exists(fname)):
+            return
+        tf = getattr(C, f"timeframe_dHi_dt_target_{self.name}", 1e9)
+        tgt = torch.as_tensor(read_field_from_file_2D(
+            fname, "dHdt", self.mesh,
+            time_to_read=None if tf == 1e9 else tf),
+            dtype=self.state.Hi.dtype, device=self.device)
+        if C.do_limit_target_dHi_dt_to_SMB:
+            tgt = torch.where(
+                tgt > 0.0,
+                torch.clamp(torch.minimum(tgt, self.SMB), min=0.0), tgt)
+        self.state = self.state.replace(dHi_dt_target=tgt)
+
+    def _bmb_target_geometry(self):
+        """Target (Hi, shelf mask) of the inverted BMB: the PD reference
+        geometry (BMB_inverted.f90:70-96), read at every BMB event, so a
+        caller may replace refgeo_PD after construction."""
+        kw = dict(dtype=self.md.A.dtype, device=self.device)
+        Hi_t = torch.as_tensor(self.refgeo_PD[0], **kw)
+        Hb_t = torch.as_tensor(self.refgeo_PD[1], **kw)
+        taf = thickness_above_flotation(Hi_t, Hb_t, torch.zeros_like(Hi_t))
+        return Hi_t, (taf <= 0.0) & (Hi_t > 0.1)
 
     def set_sealevel(self, sealevel: float):
         """Apply a (possibly time-varying) global sea level to the region
@@ -444,6 +511,14 @@ class ModelRegion:
         self.grid_out = GridOutputFile(
             out / f"main_output_{self.name}_grid.nc", self.mesh,
             self._out_grid, fields=out_fields)
+        # transect output files (transects_main.f90), one per
+        # '||'-separated transect of transects_<R>
+        self.transect_out = []
+        for spec in getattr(self.C, f"transects_{self.name}").split("||"):
+            if spec.strip():
+                tr = Transect.from_config_str(self.mesh, spec.strip())
+                self.transect_out.append(TransectOutputFile(
+                    out / f"transect_{tr.name}.nc", tr))
         # ISMIP-standard gridded output (ismip_grid_output_files.f90)
         self.ismip_out = None
         if self.C.do_create_ismip_output:
@@ -457,8 +532,8 @@ class ModelRegion:
         """Mesh update while outputs are open: rotate the mesh output
         file to the next generation (the reference creates a fresh
         main_output_<R>_0000N.nc per mesh, main_regional_output.f90)
-        and rebuild the mesh->grid maps of the gridded files, which
-        keep their history."""
+        and rebuild the mesh->target maps of the gridded and transect
+        files, which keep their history."""
         if not self._outputs_open:
             return
         self._out_gen += 1
@@ -467,6 +542,8 @@ class ModelRegion:
             / f"main_output_{self.name}_{self._out_gen:05d}.nc",
             self.mesh, fields=MESH_FIELDS_DEFAULT + self._extra_out_fields)
         self.grid_out.update_mesh(self.mesh)
+        for tout in self.transect_out:
+            tout.tr = Transect(self.mesh, tout.tr.points, tout.tr.name)
 
     def _ismip_map(self, f):
         M = get_map(self.mesh, self._out_grid)
@@ -609,6 +686,8 @@ class ModelRegion:
         self.scalar_out.write(self.time, scal)
         self.mesh_out.write(self.time, fields)
         self.grid_out.write(self.time, fields)
+        for tout in self.transect_out:
+            tout.write(self.time, s)
         if self.ismip_out is not None:
             from ..io.ismip_output import ismip_fields_from_state
             self.ismip_out.write(self.time, ismip_fields_from_state(
@@ -728,23 +807,31 @@ class ModelRegion:
         def bump(name):
             self.t_next[name] = self.t_next[name] + self.dt_comp[name]
 
+        # the JAX package's order: climate, ocean, SMB, masks, BMB, LMB,
+        # then the bed-roughness nudging
         if need("climate"):
             self.climate = self.run_climate(t, s)
             self._T_surf = self.climate["T2m"].mean(dim=1)
             bump("climate")
+        if need("ocean"):
+            self.ocean = self.run_ocean(t, s)
+            bump("ocean")
         if need("SMB"):
-            self.SMB = self.run_smb(t, s)
+            self.SMB = self.run_smb(t, s, climate=self.climate)
             bump("SMB")
         if need("BMB") or need("LMB"):
             masks, fg = self._masks_fracs(s.Hi, s.Hb, s.SL)
         if need("BMB"):
-            self.BMB = self.run_bmb(t, s, masks, fg)
+            self.BMB = self.run_bmb(t, s, masks, fg, self.ocean)
             bump("BMB")
         if need("LMB"):
             self.LMB = self.run_lmb(t, s, masks)
             bump("LMB")
-        if need("ocean"):
-            bump("ocean")
+        if need("bed_roughness"):
+            if (self.C.bed_roughness_nudging_t_start <= t
+                    <= self.C.bed_roughness_nudging_t_end):
+                self._nudge_bed_roughness(s, masks)
+            bump("bed_roughness")
         if need("checksum"):
             if self.checksum.enabled:
                 self._log_checksums()
@@ -755,6 +842,23 @@ class ModelRegion:
         if need("output_restart"):
             self.write_restart()
             bump("output_restart")
+
+    def _nudge_bed_roughness(self, s, masks):
+        """One nudging step of the bed roughness towards the PD reference
+        geometry (the bed_roughness event); the region-held roughness
+        state is what is nudged, and it is written into the ice state.
+        `s` is the state at the event's time."""
+        if masks is None:
+            masks = determine_masks(self.md, s.Hi, s.Hb, s.SL)
+        kw = dict(dtype=self.md.A.dtype, device=self.device)
+        Hi_PD = torch.as_tensor(self.refgeo_PD[0], **kw)
+        Hb_PD = torch.as_tensor(self.refgeo_PD[1], **kw)
+        tgt_Hs = ice_surface_elevation(Hi_PD, Hb_PD, s.SL)
+        self.bed_roughness_state = self._nudge_step(
+            s, masks, self.bed_roughness_state, tgt_Hs, Hi_PD)
+        self.state = self.state.replace(
+            bed_roughness=self.bed_roughness_state.generic)
+        self.nudging_events += 1
 
     # -- adaptive mesh updates (UFEMISM_main_model.f90:1211-1474) -------------
 
@@ -837,8 +941,20 @@ class ModelRegion:
 
         # rebuild what holds the mesh, and refresh the forcing on it (the
         # reference resets every component t_next to now instead,
-        # UFEMISM_main_model.f90:1326-1335)
+        # UFEMISM_main_model.f90:1326-1335). A stateful ocean (nudge2D)
+        # takes its state over through the trilinear map; the inverted
+        # BMB starts again at zero, as the JAX package's does; the nudged
+        # roughness moved with the ice state
+        old_ocean = self.run_ocean
         self._build_on_mesh()
+        if (hasattr(self.run_ocean, "carry_state_from")
+                and type(self.run_ocean) is type(old_ocean)):
+            kw = dict(dtype=self.md.A.dtype, device=self.device)
+            self.run_ocean.carry_state_from(
+                old_ocean, lambda a: torch.as_tensor(
+                    M_tri_a @ a.double().cpu().numpy(), **kw))
+        self.bed_roughness_state = BedRoughnessState(
+            generic=self.state.bed_roughness)
         self._refresh_forcing()
         self._sync()
         t_device = _time.perf_counter()

@@ -131,17 +131,21 @@ def set_mesh_lonlat(mesh: Mesh, C, region: str):
 
 
 def build_mesh_from_config(C, region: str = "ANT", geometry=None) -> Mesh:
-    """Top-level mesh creation from a Config (idealised geometry path).
+    """Top-level mesh creation from a Config.
 
-    geometry: optional (x, y, Hi, Hb, SL) tuple; if None, generated from the
-    config's idealised reference-geometry choice on a square grid at
-    dx_refgeo_init_idealised.
+    geometry: optional (x, y, Hi, Hb, SL) tuple; if None, read from the
+    initial-geometry file (choice_refgeo_init 'read_from_file') or
+    generated from the config's idealised reference-geometry choice on a
+    square grid at dx_refgeo_init_idealised.
     """
     if geometry is None:
         if getattr(C, f"choice_refgeo_init_{region}") == "read_from_file":
-            raise NotImplementedError(
-                "choice_refgeo_init 'read_from_file': reading geometry "
-                "files is not ported yet")
+            # realistic path: the mesh fitted to the file's gridded
+            # geometry (mesh_creation.f90 create_mesh_from_gridded_geometry)
+            from ..io.input_files import read_geometry_grid_raw
+            x, y, fields = read_geometry_grid_raw(C, region)
+            geometry = (x, y, fields["Hi"], fields["Hb"],
+                        fields.get("SL"))
         else:
             from ..core.idealised_geometries import (
                 generate_idealised_geometry_grid)
