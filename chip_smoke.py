@@ -125,6 +125,24 @@ of which ends the run with a non-zero exit if it fails:
 19. small_thermo_files - SMALL_THERMO with the geothermal flux read from
               a lon/lat file and the SMB from an x/y file, card against
               CPU as small_thermo, heat_columns on a file-driven path.
+20. ismip_hom - ISMIP-HOM stand-ins (Pattyn et al. 2008; ISMIP_A and the
+              rest, written inline: L = 20 km, a uniform 500 m mesh, nz 12,
+              periodic sides), the initial solve and one ice step each:
+              experiment A with BPA in f32 through the region and through
+              program.main (equal counts) and in f64, A at 2 km, C (the
+              sliding base row), A with the hybrid DIVA/BPA (BPA where x > 0,
+              from a mask file) and with DIVA (the harness's crosscheck
+              rmse against BPA); the counts, wall, u_surf on the harness's
+              transect, bpa_apply twice per operator apply and line_thomas
+              once per preconditioner apply, the last solve profiled; then
+              small_ismip (A, C and the hybrid at 80 km in f64, card against
+              a CPU process: equal counts). bpa_apply and line_thomas are
+              held to their plain versions to the bit, before the main path
+              on random operands at the ISMIP-HOM mesh's size (f32 with and
+              without the rounding of x, f64; sliding and no-slip; periodic
+              and mixed lateral rows; nz 12 and 7), and after these phases
+              on the last operator and preconditioner of ismip_hom_a_bpa;
+              the dense torch.linalg.solve is line_thomas's yardstick.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -1299,39 +1317,48 @@ def precond_solves(region, last):
 
 
 @contextlib.contextmanager
-def counted_gmres():
+def counted_gmres(module=None):
     """Within the block, the dict it yields counts the stress-balance
-    GMRES calls ("calls") and iterations ("its") and holds the last
-    call's operator, operands and options ("A", "b", "x0", "x", "kw")."""
-    from ufemism2_tpu_torch.core.ice import ssadiva
-    gm = {"calls": 0, "its": 0}
-    inner = ssadiva.gmres
+    GMRES calls ("calls") and iterations ("its") of `module` (ssadiva by
+    default; bpa, hybrid), the calls that stopped above their tolerance
+    ("unconverged": at the iteration cap or by stagnation), and holds the
+    last call's operator, preconditioner, operands and options ("A", "M",
+    "b", "x0", "x", "kw")."""
+    if module is None:
+        from ufemism2_tpu_torch.core.ice import ssadiva as module
+    gm = {"calls": 0, "its": 0, "unconverged": 0}
+    inner = module.gmres
 
     def counted(A, b, x0=None, M=None, **kw):
         res = inner(A, b, x0=x0, M=M, **kw)
         gm["calls"] += 1
         gm["its"] += res.n_iter
-        gm.update(A=A, b=b, x0=x0, x=res.x, kw=kw)
+        gm["unconverged"] += not res.converged
+        gm.update(A=A, M=M, b=b, x0=x0, x=res.x, kw=kw)
         return res
-    ssadiva.gmres = counted
+    module.gmres = counted
     try:
         yield gm
     finally:
-        ssadiva.gmres = inner
+        module.gmres = inner
 
 
 def zero_counts():
-    from ufemism2_tpu_torch.ops import cuda_heat, cuda_spmv
+    from ufemism2_tpu_torch.ops import cuda_bpa, cuda_heat, cuda_spmv
     cuda_spmv.launches = 0
     cuda_spmv.diva_launches = 0
     cuda_heat.launches = 0
+    cuda_bpa.launches = 0
+    cuda_bpa.thomas_launches = 0
 
 
 def read_counts():
-    from ufemism2_tpu_torch.ops import cuda_heat, cuda_spmv
+    from ufemism2_tpu_torch.ops import cuda_bpa, cuda_heat, cuda_spmv
     return dict(stack_spmv_launches=cuda_spmv.launches,
                 diva_apply_launches=cuda_spmv.diva_launches,
-                heat_columns_launches=cuda_heat.launches)
+                heat_columns_launches=cuda_heat.launches,
+                bpa_apply_launches=cuda_bpa.launches,
+                line_thomas_launches=cuda_bpa.thomas_launches)
 
 
 def ell_widths(md):
@@ -2274,6 +2301,610 @@ def profile_steps(region, n_steps, table_path=None):
                                               row_limit=40))
 
 
+# ---------------------------------------------------------------------------
+# ISMIP-HOM: the BPA and hybrid DIVA/BPA stress balances
+# ---------------------------------------------------------------------------
+
+# Stand-ins for the reference's config_ISMIP_HOM_<exp>_<L>_<approx>.cfg
+# (ufemism2_tpu/validation/integrated_tests.py:242-243), which are not in
+# the repository, from the protocol of Pattyn et al. (2008, The Cryosphere
+# 2:95-108) and the schema: experiment A (the idealised geometry
+# ISMIP-HOM_A: the surface sloping at 0.5 degrees, the bed's 500 m
+# sinusoid, no slip) or C (ISMIP-HOM_C: 0.1 degrees, flat-bottomed slab on
+# the idealised ISMIP-HOM_C friction), uniform A 1e-16 Pa^-3 yr^-1, n 3,
+# 'periodic_ISMIP-HOM' on every side, nz 12 (regular zeta), a uniform mesh
+# at L/40 on [-L, L]^2 (the domain the harness's transect implies: x in
+# [xmin/2, xmax/2], y = ymin/4, integrated_tests.py:249-252), no SMB, BMB
+# or thermodynamics (the experiments are diagnostic), the schema's
+# block_jacobi (the line preconditioner) and viscosity loop (visc_it_nit
+# 50); one ice step of dt_ice_min (0.1 yr) after the region's initial
+# solve.
+IH_L = 20e3
+IH_T_END = 0.1
+
+
+def ismip_hom_cfg(experiment, L, res, **over):
+    geo = f"ISMIP-HOM_{experiment}"
+    kw = dict(
+        choice_refgeo_init_ANT="idealised", choice_refgeo_init_idealised=geo,
+        choice_refgeo_PD_ANT="idealised", choice_refgeo_PD_idealised=geo,
+        refgeo_idealised_ISMIP_HOM_L=L, choice_mask_noice="none",
+        choice_stress_balance_approximation="BPA",
+        choice_sliding_law="no_sliding",
+        choice_ice_rheology_Glen="uniform", uniform_Glens_flow_factor=1e-16,
+        Glens_flow_law_exponent=3.0, nz=12, choice_zeta_grid="regular",
+        choice_thermo_model="none",
+        choice_initial_ice_temperature_ANT="uniform",
+        choice_SMB_model_ANT="uniform", uniform_SMB=0.0,
+        choice_BMB_model_ANT="uniform", uniform_BMB=0.0,
+        xmin_ANT=-L, xmax_ANT=L, ymin_ANT=-L, ymax_ANT=L,
+        maximum_resolution_uniform=res,
+        maximum_resolution_grounded_ice=res,
+        maximum_resolution_floating_ice=res,
+        maximum_resolution_grounding_line=res, grounding_line_width=res,
+        maximum_resolution_calving_front=res, calving_front_width=res,
+        maximum_resolution_ice_front=res, ice_front_width=res,
+        nit_Lloyds_algorithm=2, allow_mesh_updates=False,
+        tpu_precision="f32", do_ANT=True, start_time_of_run=0.0,
+        end_time_of_run=IH_T_END, dt_coupling=IH_T_END,
+        **{f"BC_{c}_{s}": "periodic_ISMIP-HOM" for c in "uv"
+           for s in ("north", "south", "east", "west")})
+    if experiment == "C":
+        kw.update(choice_sliding_law="idealised",
+                  choice_idealised_sliding_law="ISMIP-HOM_C")
+    kw.update(over)
+    return kw
+
+
+ISMIP_A = ismip_hom_cfg("A", IH_L, IH_L / 40)
+ISMIP_C = ismip_hom_cfg("C", IH_L, IH_L / 40)
+ISMIP_A_2KM = ismip_hom_cfg("A", IH_L, 2e3)
+# the hybrid: BPA where x > 0, the mask read from a file that the phase
+# writes (mask_BPA on an x/y grid)
+ISMIP_A_HYBRID = dict(ISMIP_A,
+                      choice_stress_balance_approximation="hybrid DIVA/BPA",
+                      choice_hybrid_DIVA_BPA_mask_ANT="read_from_file")
+ISMIP_A_DIVA = dict(ISMIP_A, choice_stress_balance_approximation="DIVA")
+# card against CPU: experiments A and C and the hybrid at L = 80 km on an
+# 8 km mesh, f64, the viscosity loop cut to 3 iterations a solve
+SMALL_ISMIP = {k: dict(ismip_hom_cfg(e, 80e3, 8e3, tpu_precision="f64",
+                                     visc_it_nit=2), **over)
+               for k, e, over in (
+                   ("A_BPA", "A", {}), ("C_BPA", "C", {}),
+                   ("A_hybrid", "A", dict(
+                       choice_stress_balance_approximation="hybrid DIVA/BPA",
+                       choice_hybrid_DIVA_BPA_mask_ANT="read_from_file")))}
+# the JAX package's scoreboard for experiment A, BPA, L = 20 km
+# (scoreboard/it_ideal_ISMIP_HOM_experiment_A_BPA_L020_284866f.json): its
+# resolution and configuration are not known; printed for context only
+IH_SCOREBOARD_L020 = dict(u_surf_min=0.5627511657083119,
+                          u_surf_max=6.347638505949138,
+                          u_surf_mean=3.837554433271286,
+                          n_visc_its=231, n_Axb_its=35402)
+
+
+def write_bpa_mask(path, L):
+    """mask_BPA = 1 where x > 0 on an x/y grid over [-1.5 L, 1.5 L]^2,
+    [y, x], written through the port's NetCDF writer."""
+    from ufemism2_tpu_torch.io.ncio import NCFile
+    x = np.linspace(-1.5 * L, 1.5 * L, 61)
+    y = np.linspace(-1.5 * L, 1.5 * L, 41)
+    with NCFile(path, "w") as nc:
+        nc.def_dim("x", len(x))
+        nc.def_dim("y", len(y))
+        for name, dims, data in (
+                ("x", ("x",), x), ("y", ("y",), y),
+                ("mask_BPA", ("y", "x"),
+                 (x[None, :] > 0.0) * np.ones((len(y), 1)))):
+            nc.def_var(name, dims)
+            nc.put(name, data)
+    return path
+
+
+def ismip_u_surf(mesh, u_3D_b):
+    """u_surf on the JAX package's ISMIP-HOM transect: 100 points, x in
+    [xmin/2, xmax/2], y = ymin/4 (integrated_tests.py:249-252)."""
+    from ufemism2_tpu_torch.models.transects import Transect
+    xt = np.linspace(mesh.xmin / 2, mesh.xmax / 2, 100)
+    yt = np.full_like(xt, mesh.ymin / 4)
+    tr = Transect(mesh, np.stack([xt, yt], 1), "ISMIP-HOM")
+    return tr.sample_triangles(u_3D_b.double().cpu().numpy())[:, 0]
+
+
+def bpa_rows_mixed(md):
+    """Lateral row tables with every kind at once: free rows, 'zero'
+    (identity) rows and neighbour-mean rows, u and v of one row of
+    different kinds."""
+    from ufemism2_tpu_torch.ops.cuda_spmv import DivaRows
+    free = md.x("bpa_rows").free
+    x, y = md.TriGC[:, 0], md.TriGC[:, 1]
+    return DivaRows(md.TriC, md.mask_TriC, free, ~free & (x > 0),
+                    ~free & (y > 0))
+
+
+def bpa_operands(md, nz, dtype, rng):
+    """Random coefficient fields of the BPA operator at md's size and nz
+    layers, of the magnitudes a viscosity iteration makes (ice 500-1,500 m
+    thick, eta 1e13-1e14 Pa yr, slopes of a few 1e-3), and (u, v) of tens
+    of m/yr, all on the card in `dtype`."""
+    from ufemism2_tpu_torch.ops.cuda_bpa import BpaCoeffs
+    n = md.nTri
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    dzeta = 1.0 / (nz - 1)
+    H = 500.0 + 1000.0 * rng.random(n)
+    zz = -1.0 / H
+    slope = 1e-2 * rng.standard_normal((n, 1))
+    eta = 10.0 ** (13.0 + rng.random((n, nz)))
+    qfac = 2.0 / dzeta ** 2 * zz ** 2
+    eta_z = 1e-2 * eta * rng.standard_normal((n, nz))
+    c = BpaCoeffs(
+        zx=t(slope + 1e-3 * rng.standard_normal((n, nz))),
+        zy=t(-slope + 1e-3 * rng.standard_normal((n, nz))),
+        eta=t(eta), eta_x=t(1e-3 * eta * rng.standard_normal((n, nz))),
+        eta_y=t(1e-3 * eta * rng.standard_normal((n, nz))), eta_z=t(eta_z),
+        zz=t(zz), zz2=t(zz ** 2), dh_dx=t(1e-2 * rng.standard_normal(n)),
+        dh_dy=t(1e-2 * rng.standard_normal(n)),
+        db_dx=t(5e-2 * rng.standard_normal(n)),
+        db_dy=t(5e-2 * rng.standard_normal(n)), dzz=t(dzeta / zz),
+        qfac=t(qfac), qb=t(qfac * eta[:, -1]),
+        rb=t(2 * eta[:, -1] / dzeta * zz + eta_z[:, -1]),
+        ratio=t(1e3 * rng.random(n) / eta[:, -1]))
+    uv = [t(30.0 * rng.standard_normal((n, nz))) for _ in range(2)]
+    return c, dzeta, uv
+
+
+def bpa_bound(A):
+    """(bytes, flops) that one apply of the BPA operator A needs: the index
+    table and the two coefficient tables, u and v, the coefficient fields,
+    the row codes and the neighbour tables of the lateral rows read once,
+    Au and Av written once; some 20 K + 80 operations a row and layer."""
+    n, nz, K = A.n, A.nz, A.stack.K
+    size = A.stack.vals.element_size()
+    n_bdry = int((~A.rows.free).sum())
+    nbytes = (K * n * 4 + 2 * K * n * size + 2 * n * nz * size
+              + 6 * n * nz * size + 11 * n * size + n + n_bdry * 12
+              + 2 * n * nz * size)
+    return nbytes, n * nz * (20 * K + 80)
+
+
+def bpa_check(name, A, x):
+    """The kernel behind the BPA operator A (a BpaOperator on the card)
+    against its plain version on the flat operand x, to the bit, with its
+    times and bound."""
+    from ufemism2_tpu_torch.ops import cuda_bpa
+    n, nz = A.n, A.nz
+    m = n * nz
+    dtype = x.dtype
+    uv = (x[:m].view(n, nz), x[m:].view(n, nz))
+    n0 = cuda_bpa.launches
+    y = A.flat(x)
+    yu, yv = A(uv)
+    torch.cuda.synchronize()
+    assert cuda_bpa.launches == n0 + 4
+    assert torch.equal(torch.cat([yu.reshape(-1), yv.reshape(-1)]), y)
+    ref = torch.cat([t.reshape(-1) for t in A.plain(*uv)])
+    torch.cuda.synchronize()
+    bit_equal = bool(torch.equal(y, ref))
+    err = float((y - ref).abs().max())
+    ok = bit_equal and bool(torch.isfinite(y).all())
+    ms = time_ms(lambda: A.flat(x), REPS)
+    n1 = cuda_bpa.launches
+    device_ms = graph_ms(lambda: A.flat(x), REPS)
+    assert cuda_bpa.launches == n1 + 2 * (REPS + 3)
+    plain_ms = time_ms(lambda: A.plain(*uv), 5, 2)
+    nbytes, flops = bpa_bound(A)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_flops = flops / H100_FLOPS[dtype] * 1e3
+    out = dict(case=name, n_rows=n, nz=nz, K=A.stack.K,
+               boundary_rows=int((~A.rows.free).sum()),
+               dtype=str(dtype).replace("torch.", ""), round_x_bf16=A.round,
+               no_sliding=A.no_sliding, bit_equal=bit_equal,
+               max_abs_err=err, max_abs_y=float(ref.abs().max()), ms=ms,
+               device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
+               bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_flops),
+               bound_by="bytes" if t_bytes >= t_flops else "operations",
+               ok=ok)
+    say("bpa_case", **out)
+    if not ok:
+        raise SystemExit(f"bpa_apply disagrees with its plain version in "
+                         f"case {name}: max err {err:.3e}")
+    return out
+
+
+def thomas_check(name, M, r):
+    """The kernel behind the line preconditioner M (a LineThomas on the
+    card) against its plain version on the flat operand r, to the bit,
+    with its times, bound and the library yardstick (one batched dense
+    torch.linalg.solve of the same systems for both right-hand sides)."""
+    from ufemism2_tpu_torch.ops import cuda_bpa
+    n, nz = M.n, M.nz
+    m = n * nz
+    dtype = r.dtype
+    rr = (r[:m].view(n, nz), r[m:].view(n, nz))
+    n0 = cuda_bpa.thomas_launches
+    x = M.flat(r)
+    xu, xv = M(rr)
+    torch.cuda.synchronize()
+    assert cuda_bpa.thomas_launches == n0 + 2
+    assert torch.equal(torch.cat([xu.reshape(-1), xv.reshape(-1)]), x)
+    ref = torch.cat([t.reshape(-1) for t in M.plain(*rr)])
+    torch.cuda.synchronize()
+    bit_equal = bool(torch.equal(x, ref))
+    err = float((x - ref).abs().max())
+    ok = bit_equal and bool(torch.isfinite(x).all())
+    ms = time_ms(lambda: M.flat(r), REPS)
+    n1 = cuda_bpa.thomas_launches
+    device_ms = graph_ms(lambda: M.flat(r), REPS)
+    assert cuda_bpa.thomas_launches == n1 + REPS + 3
+    plain_ms = time_ms(lambda: M.plain(*rr), 5, 2)
+    dense = (torch.diag_embed(M.dia) + torch.diag_embed(M.sup, 1)
+             + torch.diag_embed(M.sub, -1))
+    B = torch.stack(rr, dim=-1)
+    lib_x = torch.linalg.solve(dense, B)
+    lib_err = float((lib_x[..., 0].reshape(-1) - ref[:m]).abs().max())
+    library_ms = time_ms(lambda: torch.linalg.solve(dense, B), 20, 5)
+    size = r.element_size()
+    nbytes = (2 * n * (nz - 1) + n * nz + 4 * n * nz) * size
+    flops = 13 * n * nz
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_flops = flops / H100_FLOPS[dtype] * 1e3
+    out = dict(case=name, n_columns=n, nz=nz,
+               dtype=str(dtype).replace("torch.", ""), bit_equal=bit_equal,
+               max_abs_err=err, max_abs_x=float(ref.abs().max()),
+               library_max_abs_diff=lib_err, ms=ms, device_ms=device_ms,
+               plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
+               flops=flops, bound_ms=max(t_bytes, t_flops),
+               bound_by="bytes" if t_bytes >= t_flops else "operations",
+               ok=ok)
+    say("thomas_case", **out)
+    if not ok:
+        raise SystemExit(f"line_thomas disagrees with its plain version in "
+                         f"case {name}: max err {err:.3e}")
+    return out
+
+
+def bpa_kernel_cases(md32, md64):
+    """bpa_apply and line_thomas against their plain versions to the bit
+    on the ISMIP-HOM mesh: f32 with and without the rounding of x, f64;
+    with and without sliding; periodic (neighbour-mean) and mixed zero /
+    infinite lateral rows; nz 12 and 7. Returns (bpa cases, thomas
+    cases)."""
+    from ufemism2_tpu_torch.ops.cuda_bpa import BpaOperator, LineThomas
+    rng = np.random.default_rng(9)
+    bpa_cases, thomas_cases = [], []
+    for nz in (12, 7):
+        for dtype, rnd in ((torch.float32, True), (torch.float32, False),
+                           (torch.float64, False)):
+            md = md32 if dtype == torch.float32 else md64
+            c, dzeta, (u, v) = bpa_operands(md, nz, dtype, rng)
+            x = torch.cat([u.reshape(-1), v.reshape(-1)])
+            tag = f"nz{nz}_{str(dtype)[-7:]}{'_bf16x' if rnd else ''}"
+            for rows_name, rows in (("periodic", md.x("bpa_rows")),
+                                    ("mixed", bpa_rows_mixed(md))):
+                for ns in (False, True):
+                    if nz == 7 and (rows_name, ns) != ("mixed", False):
+                        continue
+                    A = BpaOperator(md.M2_stack.op, rows, c, dzeta, ns, rnd)
+                    bpa_cases.append(bpa_check(
+                        f"bpa_apply_{tag}_{rows_name}_"
+                        f"{'no_slip' if ns else 'sliding'}", A, x))
+            if rnd:
+                continue
+            n = md.nTri
+            t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+            sub = t(rng.standard_normal((n, nz - 1)) * 1e13)
+            sup = t(rng.standard_normal((n, nz - 1)) * 1e13)
+            dia = t(-(4.0 + rng.random((n, nz))) * 1e13)
+            M = LineThomas(sub, dia, sup)
+            thomas_cases.append(thomas_check(
+                f"line_thomas_nz{nz}_{str(dtype)[-7:]}", M,
+                t(rng.standard_normal(2 * n * nz) * 1e5)))
+    return bpa_cases, thomas_cases
+
+
+def profile_last_solve(gm, maxiter=180):
+    """The last GMRES system of a run solved again for at most `maxiter`
+    iterations under torch.profiler: device kernels and device time per
+    Krylov iteration, the device's busy share of the wall."""
+    from torch.profiler import profile, ProfilerActivity
+    from ufemism2_tpu_torch.ops.krylov import gmres
+    kw = dict(gm["kw"], maxiter=maxiter)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gmres(gm["A"], gm["b"], x0=gm["x0"], M=gm["M"], **kw)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = gmres(gm["A"], gm["b"], x0=gm["x0"], M=gm["M"], **kw)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    busy_ms = sum(r[2] for r in rows)
+    if busy_ms <= 0:
+        raise SystemExit("profile: the profiler saw no device time")
+    n_kernels = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[2])
+    return dict(krylov_its=res.n_iter, wall_ms=wall_ms,
+                device_kernels=n_kernels,
+                kernels_per_krylov_it=n_kernels / max(res.n_iter, 1),
+                device_ms_per_krylov_it=busy_ms / max(res.n_iter, 1),
+                wall_ms_per_krylov_it=wall_ms / max(res.n_iter, 1),
+                device_busy_share=busy_ms / wall_ms,
+                top=[{"kernel": k[:60], "count": c, "ms": ms}
+                     for k, c, ms in rows[:6]])
+
+
+def ismip_run(tag, cfg, mesh, device="cuda", module=None,
+              program_dir=None):
+    """One ISMIP-HOM run of the config dict `cfg`: ModelRegion on `device`
+    (the initial solve), then run_to one ice step, or the same through
+    program.main on the config written as a .cfg into program_dir; the
+    GMRES calls of `module` (default bpa) and every kernel counted.
+    Returns (region, numbers, the GMRES record, u_surf on the transect)."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.core.ice import bpa
+    from ufemism2_tpu_torch.main.region import ModelRegion
+    from ufemism2_tpu_torch.main import program
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    with counted_gmres(module or bpa) as gm:
+        zero_counts()
+        t0 = time.perf_counter()
+        init = None
+        if program_dir is None:
+            region = ModelRegion(Config(**cfg), "ANT", mesh=mesh,
+                                 device=device)
+            sync()
+            init = dict(seconds=time.perf_counter() - t0,
+                        visc=gm["calls"], its=gm["its"])
+            region.run_to(IH_T_END)
+        else:
+            os.makedirs(program_dir, exist_ok=True)
+            path = write_namelist(os.path.join(program_dir, f"{tag}.cfg"),
+                                  cfg)
+            with contextlib.redirect_stdout(sys.stderr):
+                region = program.main([path, "--output-dir", os.path.join(
+                    program_dir, "out"), "--device", device])["ANT"]
+        sync()
+        wall_s = time.perf_counter() - t0
+        counts = read_counts()
+    s = region.state
+    u_surf = ismip_u_surf(region.mesh, s.u_3D_b)
+    its = gm["its"]
+    out = dict(nV=region.mesh.nV, nTri=region.mesh.nTri,
+               precision=region.C.tpu_precision,
+               approximation=region.C.choice_stress_balance_approximation,
+               steps=region.n_dt_ice, wall_s=wall_s, initial_solve=init,
+               n_visc_its=s.n_visc_its, n_Axb_its=s.n_Axb_its,
+               gmres_calls=gm["calls"], gmres_its=its,
+               gmres_unconverged=gm["unconverged"],
+               ms_per_krylov_it=wall_s * 1e3 / max(its, 1),
+               u_surf_min=float(u_surf.min()), u_surf_max=float(u_surf.max()),
+               u_surf_mean=float(u_surf.mean()), **counts)
+    return region, out, gm, u_surf
+
+
+def ismip_phase(tag, cfg, mesh, module=None, program_dir=None):
+    """An ISMIP-HOM configuration on the card, held to its launch counts:
+    bpa_apply twice per operator apply (GMRES applies its operator once per
+    counted iteration and once more per solve), line_thomas once per
+    preconditioner apply (once per counted iteration and twice more per
+    solve) with the line preconditioner alone; finite fields."""
+    region, out, gm, u_surf = ismip_run(tag, cfg, mesh, module=module,
+                                        program_dir=program_dir)
+    C = region.C
+    out.update(jax_scoreboard_L020=IH_SCOREBOARD_L020)
+    say(tag, **out)
+    check_state(region.state, "cuda")
+    assert np.isfinite(u_surf).all() and np.abs(u_surf).max() > 0.01
+    calls, its = gm["calls"], gm["its"]
+    assert calls > 0 and its > 0 and region.n_dt_ice == 1
+    approx = C.choice_stress_balance_approximation
+    if approx in ("BPA", "hybrid DIVA/BPA"):
+        assert out["bpa_apply_launches"] == 2 * (its + calls), out
+    if approx == "BPA" and C.tpu_stress_balance_precond == "block_jacobi":
+        assert out["line_thomas_launches"] == its + 2 * calls, out
+    return region, out, gm, u_surf
+
+
+def small_ismip_snapshot(workdir, snapshot_path):
+    """SMALL_ISMIP's three cases on the CPU (plain versions): counts and
+    fields saved to snapshot_path (small_ismip_phase runs this in a
+    process of its own)."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.core.ice import bpa, hybrid
+    from ufemism2_tpu_torch.mesh import build_mesh_from_config
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 4))
+    mask = write_bpa_mask(os.path.join(workdir, "mask_small.nc"), 80e3)
+    snap = {}
+    mesh = None
+    for name, kw in SMALL_ISMIP.items():
+        kw = dict(kw, filename_hybrid_DIVA_BPA_mask_ANT=mask)
+        mesh = mesh or build_mesh_from_config(Config(**kw), "ANT")
+        t0 = time.perf_counter()
+        r, out, _, _ = ismip_run(name, kw, mesh, device="cpu",
+                                 module=hybrid if "hybrid" in name else bpa)
+        snap[name] = dict(n_visc_its=out["n_visc_its"],
+                          n_Axb_its=out["n_Axb_its"],
+                          gmres_its=out["gmres_its"],
+                          u_3D_b=r.state.u_3D_b.numpy(),
+                          v_3D_b=r.state.v_3D_b.numpy(),
+                          Hi=r.state.Hi.numpy(),
+                          seconds=time.perf_counter() - t0)
+    torch.save(snap, snapshot_path)
+
+
+def start_small_ismip_cpu(workdir):
+    d = os.path.join(workdir, "small_ismip")
+    os.makedirs(d, exist_ok=True)
+    out = os.path.join(d, "cpu.pt")
+    return start_cpu_job("small_ismip_snapshot", d, out), out
+
+
+def small_ismip_phase(workdir, cpu_job):
+    """SMALL_ISMIP on the card and on the CPU (cpu_job): equal viscosity
+    and Krylov iteration counts, fields within small_phase's gaps."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.core.ice import bpa, hybrid
+    from ufemism2_tpu_torch.mesh import build_mesh_from_config
+    d = os.path.join(workdir, "small_ismip")
+    cpu, cpu_out = cpu_job
+    mask = write_bpa_mask(os.path.join(d, "mask_small_card.nc"), 80e3)
+    card, mesh = {}, None
+    try:
+        for name, kw in SMALL_ISMIP.items():
+            kw = dict(kw, filename_hybrid_DIVA_BPA_mask_ANT=mask)
+            mesh = mesh or build_mesh_from_config(Config(**kw), "ANT")
+            r, out, _, _ = ismip_run(name, kw, mesh, module=hybrid
+                                     if "hybrid" in name else bpa)
+            card[name] = (r, out)
+        snap, cpu_wait_s = finish_cpu_job(cpu, cpu_out, "small_ismip")
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait()
+    res = {}
+    for name, (r, out) in card.items():
+        sc = snap[name]
+        gaps = {}
+        for k in ("u_3D_b", "v_3D_b", "Hi"):
+            a, b = sc[k], getattr(r.state, k).cpu().numpy()
+            gaps[k] = float(np.abs(a - b).max() / max(np.abs(a).max(),
+                                                      1e-300))
+        res[name] = dict(n_visc_its=[sc["n_visc_its"], out["n_visc_its"]],
+                         n_Axb_its=[sc["n_Axb_its"], out["n_Axb_its"]],
+                         gmres_its=[sc["gmres_its"], out["gmres_its"]],
+                         rel_gap=gaps, seconds_cpu=sc["seconds"],
+                         seconds_card=out["wall_s"],
+                         bpa_apply_launches=out["bpa_apply_launches"],
+                         line_thomas_launches=out["line_thomas_launches"])
+    say("small_ismip", nV=mesh.nV, nTri=mesh.nTri, cpu_wait_s=cpu_wait_s,
+        cases=res)
+    for name, c in res.items():
+        assert c["n_visc_its"][0] == c["n_visc_its"][1], (name, c)
+        assert c["n_Axb_its"][0] == c["n_Axb_its"][1], (name, c)
+        assert c["gmres_its"][0] == c["gmres_its"][1], (name, c)
+        assert c["rel_gap"]["Hi"] < 1e-6 and c["rel_gap"]["u_3D_b"] < 1e-5 \
+            and c["rel_gap"]["v_3D_b"] < 1e-5, (name, c)
+        assert c["bpa_apply_launches"] > 0
+    return res
+
+
+def ismip_hom_phases(mesh_ih, workdir, cpu_job):
+    """The slice's phases: ismip_hom_a_bpa (f32 through the region and
+    through program.main, f64), ismip_hom_c_bpa, ismip_hom_a_hybrid with
+    DIVA on the same stand-in (the harness's crosscheck), then
+    small_ismip; returns (launches by path, the last BPA operator and
+    preconditioner of ismip_hom_a_bpa with the operands of their last
+    calls, the ISMIP numbers)."""
+    from ufemism2_tpu_torch.core.ice import bpa, hybrid, ssadiva
+    nums = {}
+    # experiment A, BPA, f32: the region, then program.main on a .cfg
+    r_a, nums["ismip_hom_a_bpa"], gm_a, u_a = ismip_phase(
+        "ismip_hom_a_bpa", ISMIP_A, mesh_ih)
+    last = dict(A=gm_a["A"], M=gm_a["M"], x=gm_a["x"], b=gm_a["b"])
+    prof = profile_last_solve(gm_a)
+    nums["ismip_hom_a_bpa"]["profile_last_solve"] = prof
+    say("ismip_hom_a_bpa_profile", **prof)
+    _, p_a, _, u_p = ismip_phase(
+        "ismip_hom_a_bpa_program", ISMIP_A, mesh_ih,
+        program_dir=os.path.join(workdir, "ismip_hom_a_program"))
+    nums["ismip_hom_a_bpa_program"] = p_a
+    # the same code on the same card and data: the same trajectory
+    assert (p_a["n_visc_its"], p_a["n_Axb_its"]) == (
+        nums["ismip_hom_a_bpa"]["n_visc_its"],
+        nums["ismip_hom_a_bpa"]["n_Axb_its"]), p_a
+    _, nums["ismip_hom_a_bpa_f64"], _, _ = ismip_phase(
+        "ismip_hom_a_bpa_f64", dict(ISMIP_A, tpu_precision="f64"), mesh_ih)
+    # the same experiment on a 2 km mesh: the resolution at which the
+    # viscosity loop's GMRES solves converge (PERF.md, section 7)
+    _, nums["ismip_hom_a_bpa_2km"], _, _ = ismip_phase(
+        "ismip_hom_a_bpa_2km", ISMIP_A_2KM, None)
+    _, nums["ismip_hom_c_bpa"], _, _ = ismip_phase(
+        "ismip_hom_c_bpa", ISMIP_C, mesh_ih)
+    mask = write_bpa_mask(os.path.join(workdir, "mask_BPA.nc"), IH_L)
+    _, nums["ismip_hom_a_hybrid"], gm_h, u_h = ismip_phase(
+        "ismip_hom_a_hybrid", dict(ISMIP_A_HYBRID,
+                                   filename_hybrid_DIVA_BPA_mask_ANT=mask),
+        mesh_ih, module=hybrid)
+    prof_h = profile_last_solve(gm_h)
+    nums["ismip_hom_a_hybrid"]["profile_last_solve"] = prof_h
+    say("ismip_hom_a_hybrid_profile", **prof_h)
+    _, nums["ismip_hom_a_diva"], _, u_d = ismip_phase(
+        "ismip_hom_a_diva", ISMIP_A_DIVA, mesh_ih, module=ssadiva)
+    rmse = lambda u: float(np.sqrt(((u - u_a) ** 2).mean()))
+    say("ismip_hom_crosscheck", rmse_DIVA_vs_BPA=rmse(u_d),
+        rmse_hybrid_vs_BPA=rmse(u_h))
+    nums["small_ismip"] = small_ismip_phase(workdir, cpu_job)
+    return nums, last
+
+
+def bpa_slice_start():
+    """The ISMIP-HOM stand-in's mesh on the host (its MeshData in f32 and
+    f64 on the card) and bpa_kernel_cases on it."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.core.ice.bpa import register_bpa_static
+    from ufemism2_tpu_torch.core.mesh_data import build_mesh_data
+    from ufemism2_tpu_torch.mesh import build_mesh_from_config
+    C = Config(**ISMIP_A)
+    t0 = time.perf_counter()
+    mesh = build_mesh_from_config(C, "ANT")
+    mds = [build_mesh_data(mesh, dtype=dt, device="cuda")
+           for dt in (torch.float32, torch.float64)]
+    for md in mds:
+        register_bpa_static(C, mesh, md)
+    say("ismip_hom_mesh", nV=mesh.nV, nTri=mesh.nTri, L_m=IH_L,
+        resolution_m=IH_L / 40, nz=C.nz, K_M2=mds[0].M2_stack.K,
+        seconds=time.perf_counter() - t0)
+    bpa_cases, thomas_cases = bpa_kernel_cases(*mds)
+    return dict(mesh=mesh, bpa_cases=bpa_cases, thomas_cases=thomas_cases)
+
+
+def bpa_slice_finish(ih, workdir):
+    """The ISMIP-HOM phases, then bpa_apply and line_thomas on the last
+    operator and preconditioner of ismip_hom_a_bpa; returns (the phases'
+    numbers, the two kernels' entries of the kernels line)."""
+    cpu_job = start_small_ismip_cpu(workdir)
+    try:
+        nums, last = ismip_hom_phases(ih["mesh"], workdir, cpu_job)
+    finally:
+        if cpu_job[0].poll() is None:
+            cpu_job[0].kill()
+            cpu_job[0].wait()
+    A, M = last["A"], last["M"]
+    x = torch.cat([t.reshape(-1) for t in last["x"]])
+    hot_bpa = bpa_check("bpa_apply_ismip_hom_a_last_apply", A, x)
+    r = torch.cat([t.reshape(-1) for t in last["b"]]) - A.flat(x)
+    hot_th = thomas_check("line_thomas_ismip_hom_a_last_apply", M, r)
+    paths = ("ismip_hom_a_bpa", "ismip_hom_a_bpa_program",
+             "ismip_hom_a_bpa_f64", "ismip_hom_c_bpa", "ismip_hom_a_hybrid")
+
+    def by_path(key):
+        out = {p: nums[p][key] for p in paths}
+        out.update({f"small_ismip_{k}": v[key]
+                    for k, v in nums["small_ismip"].items()})
+        return out
+
+    def entry(name, hot, cases, replaces, key):
+        return {"name": name, "route": "cuda",
+                "source": "ufemism2_tpu_torch/csrc/bpa.cu",
+                "replaces": replaces,
+                "replaces_kind": "XLA-lowered code, no pallas_call",
+                "launches": nums["ismip_hom_a_bpa"][key],
+                "launches_by_path": by_path(key),
+                "max_abs_err": hot["max_abs_err"], "ms": hot["ms"],
+                "device_ms": hot["device_ms"], "plain_ms": hot["plain_ms"],
+                "bound_ms": hot["bound_ms"], "bound_by": hot["bound_by"],
+                "library_ms": hot["library_ms"], "timed_case": hot["case"],
+                "cases": cases + [hot]}
+    return nums, [
+        entry("bpa_apply", hot_bpa, ih["bpa_cases"],
+              "ufemism2_tpu/core/ice/bpa.py:208", "bpa_apply_launches"),
+        entry("line_thomas", hot_th, ih["thomas_cases"],
+              "ufemism2_tpu/core/ice/bpa.py:299", "line_thomas_launches")]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
@@ -2288,7 +2919,7 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from ufemism2_tpu_torch.ops import cuda_spmv     # sets TF32 off
-    from ufemism2_tpu_torch.ops import cuda_heat
+    from ufemism2_tpu_torch.ops import cuda_heat, cuda_bpa
     from ufemism2_tpu_torch.ops._build import SOURCES, build_kernel
     from ufemism2_tpu_torch.config import Config
     from ufemism2_tpu_torch.mesh import build_mesh_from_config
@@ -2312,9 +2943,13 @@ def main():
         built = dict(zip(SOURCES, pool.map(build_timed, SOURCES)))
     cuda_spmv.load_kernels()
     cuda_heat.load_kernels()
+    cuda_bpa.load_kernels()
     say("build", seconds=time.perf_counter() - t0,
         sources={f"ufemism2_tpu_torch/csrc/{n}.cu": s
                  for n, s in built.items()})
+
+    # -- the ISMIP-HOM mesh (host) and the BPA kernels -----------------------
+    ih = bpa_slice_start()
 
     # -- 3. mesh (host) ----------------------------------------------------
     C = Config(**FULL)
@@ -2467,6 +3102,9 @@ def main():
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
+    # -- 20-25. ISMIP-HOM: BPA and the hybrid DIVA/BPA ----------------------
+    with tempfile.TemporaryDirectory() as workdir:
+        ih_nums, ih_kernels = bpa_slice_finish(ih, workdir)
     ir_pins = (IR_STEPS, IR_VISC_ITS, IR_AXB_ITS)
     ir_got = tuple(ir["f32"][k] for k in ("steps", "n_visc_its",
                                           "n_Axb_its"))
@@ -2538,7 +3176,11 @@ def main():
         "library_ms": hot_heat["library_ms"],
         "timed_case": hot_heat["case"], "cases": heat_cases,
     }]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    kernels[0]["launches_by_path"]["ismip_hom_a_bpa"] = \
+        ih_nums["ismip_hom_a_bpa"]["stack_spmv_launches"]
+    kernels[1]["launches_by_path"]["ismip_hom_a_diva"] = \
+        ih_nums["ismip_hom_a_diva"]["diva_apply_launches"]
+    print(json.dumps({"kernels": kernels + ih_kernels}), flush=True)
     print(card_line, flush=True)
     say("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

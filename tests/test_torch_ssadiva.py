@@ -306,18 +306,22 @@ def test_ssa_solve_and_no_sliding(env, cold):
 
 
 @pytest.mark.parametrize("over, exc, word", [
-    (dict(choice_stress_balance_approximation="hybrid DIVA/BPA"),
-     NotImplementedError, "hybrid DIVA/BPA"),
+    (dict(choice_stress_balance_approximation="hybrid DIVA/BPA",
+          choice_hybrid_DIVA_BPA_mask_ANT="ROI"),
+     NotImplementedError, "ROI"),
     (dict(tpu_stress_balance_precond="ilu"), ValueError,
      "tpu_stress_balance_precond"),
-    (dict(choice_stress_balance_approximation="BPA"), NotImplementedError,
-     "BPA"),
+    (dict(choice_stress_balance_approximation="hybrid DIVA/BPA",
+          choice_hybrid_DIVA_BPA_mask_ANT="no_such_mask"), ValueError,
+     "choice_hybrid_DIVA_BPA_mask_ANT"),
     (dict(BC_u_north="no_such_bc"), ValueError, "BC_u_north"),
 ])
 def test_unported_choices_raise_by_name(env, over, exc, word):
     """What is not ported raises NotImplementedError, what does not exist
-    ValueError, each naming the choice (the preconditioners and the
-    ocean-pressure front are ported now: test_ported_choices_build)."""
+    ValueError, each naming the choice (the preconditioners, the
+    ocean-pressure front, BPA and the hybrid DIVA/BPA are ported now:
+    test_ported_choices_build; the hybrid's 'ROI' mask waits for the
+    regions of interest, ROADMAP A.15)."""
     _, Ct = configs(**over)
     mdt = tmd.build_mesh_data(env.mesh_t, dtype=torch.float64, device="cpu")
     with pytest.raises(exc, match=word):
@@ -330,14 +334,34 @@ def test_unported_choices_raise_by_name(env, over, exc, word):
     dict(tpu_stress_balance_precond="block_dense"),
     dict(tpu_stress_balance_precond="two_level"),
     dict(BC_ice_front="ocean_pressure"),
+    dict(choice_stress_balance_approximation="BPA"),
+    dict(choice_stress_balance_approximation="hybrid DIVA/BPA",
+         choice_hybrid_DIVA_BPA_mask_ANT="read_from_file"),
 ], ids=["chebyshev", "neumann", "block_dense", "two_level",
-        "ocean_pressure"])
-def test_ported_choices_build(env, over):
-    """The choices that raised until the MISMIP+ slice build a solver, and
-    the preconditioners their tables."""
+        "ocean_pressure", "BPA", "hybrid DIVA/BPA"])
+def test_ported_choices_build(env, over, tmp_path):
+    """The choices that raised until the MISMIP+ slice (the preconditioners,
+    the front) and until the BPA slice (BPA, the hybrid with a mask read
+    from a file) build a solver, and the preconditioners their tables."""
+    if over.get("choice_hybrid_DIVA_BPA_mask_ANT") == "read_from_file":
+        from ufemism2_tpu_torch.io.ncio import NCFile
+        x = np.linspace(-1000e3, 1000e3, 5)
+        path = str(tmp_path / "mask_BPA.nc")
+        with NCFile(path, "w") as nc:
+            nc.def_dim("x", 5)
+            nc.def_dim("y", 5)
+            for name, dims, data in (("x", ("x",), x), ("y", ("y",), x),
+                                     ("mask_BPA", ("y", "x"),
+                                      (x[None, :] > 0) * np.ones((5, 1)))):
+                nc.def_var(name, dims)
+                nc.put(name, data)
+        over = dict(over, filename_hybrid_DIVA_BPA_mask_ANT=path)
     _, Ct = configs(**over)
     mdt = tmd.build_mesh_data(env.mesh_t, dtype=torch.float64, device="cpu")
     assert callable(t_make_solve(Ct, mdt))
     kind = over.get("tpu_stress_balance_precond")
     assert ("bjd_vals" in mdt.extras) == (kind == "block_dense")
     assert ("c2_bcol" in mdt.extras) == (kind == "two_level")
+    approx = over.get("choice_stress_balance_approximation")
+    assert ("bpa_rows" in mdt.extras) == (approx in ("BPA",
+                                                     "hybrid DIVA/BPA"))

@@ -214,3 +214,53 @@ def ocean_snapshot_spec(T_shift=0.0, with_time=False):
         variables["T_ocean"] = (("depth", "y", "x"), np.swapaxes(T, 1, 2))
         variables["S_ocean"] = (("depth", "y", "x"), np.swapaxes(S, 1, 2))
     return dims, variables
+
+
+# ISMIP-HOM (Pattyn et al. 2008) at a small size: the experiment's
+# geometry on the domain [-L, L]^2 that the JAX package's harness's
+# transect implies (x in [xmin/2, xmax/2], y = ymin/4:
+# ufemism2_tpu/validation/integrated_tests.py:249-252), a uniform mesh,
+# periodic lateral boundaries, uniform A 1e-16 Pa^-3 yr^-1; no SMB or BMB
+# (the experiments are diagnostic).
+def ismip_hom(experiment="A", L=20e3, res=5e3, **over):
+    """The config dict of ISMIP-HOM experiment A or C at L and mesh
+    resolution `res`, BPA (override the approximation in `over`)."""
+    geo = f"ISMIP-HOM_{experiment}"
+    kw = dict(
+        choice_refgeo_init_ANT="idealised", choice_refgeo_init_idealised=geo,
+        choice_refgeo_PD_ANT="idealised", choice_refgeo_PD_idealised=geo,
+        refgeo_idealised_ISMIP_HOM_L=L, choice_mask_noice="none",
+        choice_stress_balance_approximation="BPA",
+        choice_sliding_law="no_sliding",
+        choice_ice_rheology_Glen="uniform", uniform_Glens_flow_factor=1e-16,
+        choice_thermo_model="none",
+        choice_initial_ice_temperature_ANT="uniform",
+        choice_SMB_model_ANT="uniform", uniform_SMB=0.0,
+        choice_BMB_model_ANT="uniform", uniform_BMB=0.0,
+        xmin_ANT=-L, xmax_ANT=L, ymin_ANT=-L, ymax_ANT=L,
+        maximum_resolution_uniform=res,
+        maximum_resolution_grounded_ice=res,
+        maximum_resolution_floating_ice=res,
+        maximum_resolution_grounding_line=res, grounding_line_width=res,
+        maximum_resolution_calving_front=res, calving_front_width=res,
+        maximum_resolution_ice_front=res, ice_front_width=res,
+        nit_Lloyds_algorithm=2, allow_mesh_updates=False,
+        **{f"BC_{c}_{s}": "periodic_ISMIP-HOM" for c in "uv"
+           for s in ("north", "south", "east", "west")})
+    if experiment == "C":
+        kw.update(choice_sliding_law="idealised",
+                  choice_idealised_sliding_law="ISMIP-HOM_C")
+    kw.update(over)
+    return kw
+
+
+def ismip_transect(mesh, u_3D_b):
+    """u_surf on the JAX package's ISMIP-HOM transect (100 points, x in
+    [xmin/2, xmax/2], y = ymin/4), sampled through the port's Transect."""
+    from ufemism2_tpu_torch.models.transects import Transect
+    xt = np.linspace(mesh.xmin / 2, mesh.xmax / 2, 100)
+    yt = np.full_like(xt, mesh.ymin / 4)
+    tr = Transect(mesh, np.stack([xt, yt], 1), "ISMIP-HOM")
+    u = np.asarray(u_3D_b.detach().cpu().numpy() if hasattr(u_3D_b, "detach")
+                   else u_3D_b, np.float64)
+    return tr.sample_triangles(u)[:, 0]

@@ -60,11 +60,26 @@ def make_solve_stress_balance(C, md: MeshData, bedrock_cdfs=None):
         from .ssadiva import make_solve_ssa_diva
         return make_solve_ssa_diva(C, md, choice, bedrock_cdfs=bedrock_cdfs)
 
-    if choice in ("BPA", "hybrid DIVA/BPA"):
-        raise NotImplementedError(
-            f"choice_stress_balance_approximation '{choice}' is not ported "
-            "yet (ported: none, SIA, SSA, DIVA, SIA/SSA)")
-    raise ValueError(f"stress balance '{choice}' not implemented yet")
+    if choice == "BPA":
+        from .bpa import make_solve_bpa
+        solve6 = make_solve_bpa(C, md, bedrock_cdfs=bedrock_cdfs)
+    elif choice == "hybrid DIVA/BPA":
+        from .hybrid import make_solve_hybrid, resolve_hybrid_mask
+        # the mask choice keys are per region: the region the config names
+        # (_current_region), or else the first whose choice is set
+        region = getattr(C, "_current_region", None) or next(
+            (r for r in ("ANT", "EAS", "GRL", "NAM")
+             if getattr(C, f"choice_hybrid_DIVA_BPA_mask_{r}")), "ANT")
+        mask_BPA_b = resolve_hybrid_mask(C, md._host_mesh, region)
+        solve6 = make_solve_hybrid(C, md, mask_BPA_b,
+                                   bedrock_cdfs=bedrock_cdfs)
+    else:
+        raise ValueError(f"stress balance '{choice}' not implemented yet")
+
+    def solve(md, Hi, Hs, Hb, SL, Ti, s):
+        # no warm-start state of their own: the state's is carried through
+        return (*solve6(md, Hi, Hs, Hb, SL, Ti, s), s.solver_aux())
+    return solve
 
 
 def make_pc_step(C, md: MeshData, refgeo_Hi=None, refgeo_Hb=None,

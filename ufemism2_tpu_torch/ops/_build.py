@@ -12,7 +12,7 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent.parent / "build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("stack_spmv", "heat_columns")   # csrc/<name>.cu
+SOURCES = ("stack_spmv", "heat_columns", "bpa")   # csrc/<name>.cu
 _built = {}          # name -> path of the library built in this process
 
 

@@ -14,7 +14,8 @@ only.
 A is any callable x -> A@x (a tensor or a tuple of tensors in, same out);
 M is the preconditioner application (approximate A^-1). `gmres` works on
 one flat vector; an A on a tuple that has an attribute `flat` (the same
-operator on the concatenation of the leaves) is applied through it.
+operator on the concatenation of the leaves) is applied through it, and
+so is a preconditioner with one.
 
 The vectors live on the device; the loops run in Python and read one
 small result back per iteration (the residual estimate), which is what
@@ -260,15 +261,17 @@ def gmres(A: Callable, b, x0=None, M: Callable = None,
                  for i in range(len(shapes))]
         return tuple(parts) if is_tuple else parts[0]
 
-    # an operator on a tuple may offer itself on the flat vector
-    # (`A.flat`), which saves the split and the concatenation per apply
+    # an operator or a preconditioner on a tuple may offer itself on the
+    # flat vector (`A.flat`, `M.flat`), which saves the split and the
+    # concatenation per apply
     A_flat = getattr(A, "flat", None) if is_tuple else None
+    M_flat = getattr(M, "flat", None) if is_tuple else None
 
     def Af(v):
         return A_flat(v) if A_flat is not None else flat(A(unflat(v)))
 
     def Mf(v):
-        return flat(M(unflat(v)))
+        return M_flat(v) if M_flat is not None else flat(M(unflat(v)))
 
     bf = flat(b)
     xf0 = flat(x0)
