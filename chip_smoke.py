@@ -142,7 +142,11 @@ of which ends the run with a non-zero exit if it fails:
               without the rounding of x, f64; sliding and no-slip; periodic
               and mixed lateral rows; nz 12 and 7), and after these phases
               on the last operator and preconditioner of ismip_hom_a_bpa;
-              the dense torch.linalg.solve is line_thomas's yardstick.
+              each with its device time with the L2 hot and cold (a 64 MiB
+              buffer written before each call) and its share of the bound;
+              the dense torch.linalg.solve is line_thomas's yardstick; the
+              profile of the last solve gives both kernels' device ms a
+              Krylov iteration.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -169,6 +173,7 @@ H100_FLOPS = {torch.float32: 67e12,      # f32 outside the tensor cores
 T_WARM = 20.0      # model years of start-up transient before the window
 WINDOW = 40.0      # model years of the measured window
 REPS = 200         # launches per kernel timing
+FLUSH_BYTES = 64 << 20   # written before each call of a cold-L2 timing
 # GMRES iterations of the initial solve and Krylov iterations of the window
 # on the FULL configuration, and the grounding line after it [km]
 INIT_GMRES_ITS, WINDOW_AXB_ITS, X_GL_KM = 3286, 1568, 457.457
@@ -479,6 +484,18 @@ def graph_ms(fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def graph_ms_cold(fn, reps):
+    """(mean device time of fn() in ms with a cold L2, the flush's own
+    time): `reps` pairs of a flush and fn() in one CUDA graph, less `reps`
+    flushes alone. The flush writes FLUSH_BYTES, more than the 50 MB L2,
+    as GMRES's CGS2 walks its basis between two operator applies."""
+    buf = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    flush = lambda: buf.fill_(1.0)
+    both = graph_ms(lambda: (flush(), fn()), reps)
+    alone = graph_ms(flush, reps)
+    return both - alone, alone
 
 
 def kernel_case(name, A_mats, x_np, dtype, round_x):
@@ -2491,19 +2508,25 @@ def bpa_check(name, A, x):
     n1 = cuda_bpa.launches
     device_ms = graph_ms(lambda: A.flat(x), REPS)
     assert cuda_bpa.launches == n1 + 2 * (REPS + 3)
+    n1 = cuda_bpa.launches
+    cold_ms, flush_ms = graph_ms_cold(lambda: A.flat(x), REPS)
+    assert cuda_bpa.launches == n1 + 2 * (REPS + 3)
     plain_ms = time_ms(lambda: A.plain(*uv), 5, 2)
     nbytes, flops = bpa_bound(A)
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_flops = flops / H100_FLOPS[dtype] * 1e3
+    bound_ms = max(t_bytes, t_flops)
     out = dict(case=name, n_rows=n, nz=nz, K=A.stack.K,
                boundary_rows=int((~A.rows.free).sum()),
                dtype=str(dtype).replace("torch.", ""), round_x_bf16=A.round,
                no_sliding=A.no_sliding, bit_equal=bit_equal,
                max_abs_err=err, max_abs_y=float(ref.abs().max()), ms=ms,
-               device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
-               bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_flops),
+               device_ms=device_ms, device_ms_cold=cold_ms,
+               flush_ms=flush_ms, plain_ms=plain_ms, library_ms=None,
+               bytes=nbytes, flops=flops, bound_ms=bound_ms,
                bound_by="bytes" if t_bytes >= t_flops else "operations",
-               ok=ok)
+               share_of_bound=bound_ms / device_ms,
+               share_of_bound_cold=bound_ms / cold_ms, ok=ok)
     say("bpa_case", **out)
     if not ok:
         raise SystemExit(f"bpa_apply disagrees with its plain version in "
@@ -2536,6 +2559,9 @@ def thomas_check(name, M, r):
     n1 = cuda_bpa.thomas_launches
     device_ms = graph_ms(lambda: M.flat(r), REPS)
     assert cuda_bpa.thomas_launches == n1 + REPS + 3
+    n1 = cuda_bpa.thomas_launches
+    cold_ms, flush_ms = graph_ms_cold(lambda: M.flat(r), REPS)
+    assert cuda_bpa.thomas_launches == n1 + REPS + 3
     plain_ms = time_ms(lambda: M.plain(*rr), 5, 2)
     dense = (torch.diag_embed(M.dia) + torch.diag_embed(M.sup, 1)
              + torch.diag_embed(M.sub, -1))
@@ -2548,14 +2574,17 @@ def thomas_check(name, M, r):
     flops = 13 * n * nz
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_flops = flops / H100_FLOPS[dtype] * 1e3
+    bound_ms = max(t_bytes, t_flops)
     out = dict(case=name, n_columns=n, nz=nz,
                dtype=str(dtype).replace("torch.", ""), bit_equal=bit_equal,
                max_abs_err=err, max_abs_x=float(ref.abs().max()),
                library_max_abs_diff=lib_err, ms=ms, device_ms=device_ms,
+               device_ms_cold=cold_ms, flush_ms=flush_ms,
                plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
-               flops=flops, bound_ms=max(t_bytes, t_flops),
+               flops=flops, bound_ms=bound_ms,
                bound_by="bytes" if t_bytes >= t_flops else "operations",
-               ok=ok)
+               share_of_bound=bound_ms / device_ms,
+               share_of_bound_cold=bound_ms / cold_ms, ok=ok)
     say("thomas_case", **out)
     if not ok:
         raise SystemExit(f"line_thomas disagrees with its plain version in "
@@ -2563,12 +2592,24 @@ def thomas_check(name, M, r):
     return out
 
 
+def off16(x):
+    """A copy of the flat x one element into a larger buffer, so that it and
+    both its halves lie off a 16-byte boundary (as the hybrid's 3-D slice
+    of its Krylov vector does on a mesh of an odd number of triangles)."""
+    y = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    y.copy_(x)
+    m = x.numel() // 2
+    assert y.data_ptr() % 16 and y[m:].data_ptr() % 16
+    return y
+
+
 def bpa_kernel_cases(md32, md64):
     """bpa_apply and line_thomas against their plain versions to the bit
     on the ISMIP-HOM mesh: f32 with and without the rounding of x, f64;
     with and without sliding; periodic (neighbour-mean) and mixed zero /
-    infinite lateral rows; nz 12 and 7. Returns (bpa cases, thomas
-    cases)."""
+    infinite lateral rows; nz 12 and 7; f32 rounded and f64 also with the
+    operands off a 16-byte boundary (the kernels' unaligned forms).
+    Returns (bpa cases, thomas cases)."""
     from ufemism2_tpu_torch.ops.cuda_bpa import BpaOperator, LineThomas
     rng = np.random.default_rng(9)
     bpa_cases, thomas_cases = [], []
@@ -2588,6 +2629,11 @@ def bpa_kernel_cases(md32, md64):
                     bpa_cases.append(bpa_check(
                         f"bpa_apply_{tag}_{rows_name}_"
                         f"{'no_slip' if ns else 'sliding'}", A, x))
+            if rnd or dtype == torch.float64:
+                bpa_cases.append(bpa_check(
+                    f"bpa_apply_{tag}_mixed_"
+                    f"{'no_slip' if A.no_sliding else 'sliding'}_off16", A,
+                    off16(x)))
             if rnd:
                 continue
             n = md.nTri
@@ -2596,9 +2642,10 @@ def bpa_kernel_cases(md32, md64):
             sup = t(rng.standard_normal((n, nz - 1)) * 1e13)
             dia = t(-(4.0 + rng.random((n, nz))) * 1e13)
             M = LineThomas(sub, dia, sup)
-            thomas_cases.append(thomas_check(
-                f"line_thomas_nz{nz}_{str(dtype)[-7:]}", M,
-                t(rng.standard_normal(2 * n * nz) * 1e5)))
+            r = t(rng.standard_normal(2 * n * nz) * 1e5)
+            tag = f"line_thomas_nz{nz}_{str(dtype)[-7:]}"
+            thomas_cases.append(thomas_check(tag, M, r))
+            thomas_cases.append(thomas_check(f"{tag}_off16", M, off16(r)))
     return bpa_cases, thomas_cases
 
 
@@ -2626,12 +2673,22 @@ def profile_last_solve(gm, maxiter=180):
         raise SystemExit("profile: the profiler saw no device time")
     n_kernels = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[2])
+    its = max(res.n_iter, 1)
+    # the port's BPA kernels by name: their share of a Krylov iteration
+    port = {}
+    for name in ("bpa_first_kernel", "bpa_rows_kernel",
+                 "line_thomas_kernel"):
+        sel = [r for r in rows if name in r[0]]
+        ms = sum(r[2] for r in sel)
+        port[name] = dict(count=sum(r[1] for r in sel), ms=ms,
+                          ms_per_krylov_it=ms / its,
+                          share_of_device=ms / busy_ms)
     return dict(krylov_its=res.n_iter, wall_ms=wall_ms,
                 device_kernels=n_kernels,
-                kernels_per_krylov_it=n_kernels / max(res.n_iter, 1),
-                device_ms_per_krylov_it=busy_ms / max(res.n_iter, 1),
-                wall_ms_per_krylov_it=wall_ms / max(res.n_iter, 1),
-                device_busy_share=busy_ms / wall_ms,
+                kernels_per_krylov_it=n_kernels / its,
+                device_ms_per_krylov_it=busy_ms / its,
+                wall_ms_per_krylov_it=wall_ms / its,
+                device_busy_share=busy_ms / wall_ms, port_kernels=port,
                 top=[{"kernel": k[:60], "count": c, "ms": ms}
                      for k, c, ms in rows[:6]])
 
@@ -2894,7 +2951,10 @@ def bpa_slice_finish(ih, workdir):
                 "launches": nums["ismip_hom_a_bpa"][key],
                 "launches_by_path": by_path(key),
                 "max_abs_err": hot["max_abs_err"], "ms": hot["ms"],
-                "device_ms": hot["device_ms"], "plain_ms": hot["plain_ms"],
+                "device_ms": hot["device_ms"],
+                "device_ms_cold": hot["device_ms_cold"],
+                "share_of_bound": hot["share_of_bound"],
+                "plain_ms": hot["plain_ms"],
                 "bound_ms": hot["bound_ms"], "bound_by": hot["bound_by"],
                 "library_ms": hot["library_ms"], "timed_case": hot["case"],
                 "cases": cases + [hot]}

@@ -44,8 +44,7 @@ from ._build import build_kernel
 from .cuda_spmv import DivaRows, StackOperator, _round_bf16
 from .tridiag import thomas_batched
 
-NZ_MAX = 64          # layers a column may have (line_thomas keeps a column
-                     # in registers and local memory)
+NZ_MAX = 64          # layers a column may have (csrc/bpa.cu UF_NZ_MAX)
 
 launches = 0         # bpa_apply kernel launches (two an apply) since the
                      # caller last set it to 0
@@ -89,7 +88,8 @@ class _BpaDesc(ctypes.Structure):        # csrc/bpa.cu::BpaDesc
                 + [(name, ctypes.c_double)
                    for name in ("dzeta", "two_dzeta", "dzeta_sq")]
                 + [(name, ctypes.c_int) for name in (
-                    "n_rows", "K", "nz", "round_x_bf16", "no_sliding")])
+                    "n_rows", "K", "nz", "round_x_bf16", "no_sliding")]
+                + [("scratch_bf16", ctypes.c_void_p)])
 
 
 class _ThomasDesc(ctypes.Structure):     # csrc/bpa.cu::ThomasDesc
@@ -288,7 +288,8 @@ def _check_x(what, x, shape, dtype, device):
 class BpaOperator:
     """The BPA operator for one viscosity iteration, checked once and bound
     to the kernel `bpa_apply` (two launches an apply: the first
-    derivatives of u and v into a scratch [4, n, nz], then the rows).
+    derivatives of u and v into a scratch [n, nz, 4], with the rounding of
+    x also their copy rounded once to bfloat16, then the rows).
     `A((u, v))` gives (Au, Av); `A.flat(x)` takes and gives the flat
     Krylov vector [u; v] (each [n, nz] row-major)."""
 
@@ -328,13 +329,18 @@ class BpaOperator:
             lib = load_kernels()
             self._fn = (lib.bpa_apply_f32 if self.dtype == torch.float32
                         else lib.bpa_apply_f64)
-            self._scratch = torch.empty((4, n, nz), dtype=self.dtype,
+            self._scratch = torch.empty((n, nz, 4), dtype=self.dtype,
                                         device=self.device)
+            self._scratch_bf16 = (torch.empty((n, nz, 4),
+                                              dtype=torch.bfloat16,
+                                              device=self.device)
+                                  if self.round else None)
             self._desc = _BpaDesc(
                 stack.cols.data_ptr(), stack.vals.data_ptr(),
                 *(f.data_ptr() for f in self.coeffs), rows.tric32.data_ptr(),
                 rows.code.data_ptr(), self._scratch.data_ptr(), *vals,
-                n, stack.K, nz, self.round, self.no_sliding)
+                n, stack.K, nz, self.round, self.no_sliding,
+                self._scratch_bf16.data_ptr() if self.round else None)
             self._desc_ptr = ctypes.addressof(self._desc)
             self._step = n * nz * self._scratch.element_size()
 
@@ -388,8 +394,9 @@ class LineThomas:
     """The vertical-line preconditioner of one viscosity iteration (the
     tridiagonal systems sub [n, nz-1], dia [n, nz], sup [n, nz-1]), checked
     once and bound to the kernel `line_thomas`: one launch solves every
-    column for both right-hand sides. `M((ru, rv))` gives (xu, xv);
-    `M.flat(r)` works on the flat Krylov vector."""
+    column for both right-hand sides (a lane each, from shared memory).
+    `M((ru, rv))` gives (xu, xv); `M.flat(r)` works on the flat Krylov
+    vector."""
 
     def __init__(self, sub, dia, sup):
         n, nz = dia.shape
