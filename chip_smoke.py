@@ -147,6 +147,43 @@ of which ends the run with a non-zero exit if it fails:
               the dense torch.linalg.solve is line_thomas's yardstick; the
               profile of the last solve gives both kernels' device ms a
               Krylov iteration.
+26. antarctica_init - the realistic Antarctica initialisation stand-in
+              (ant_init_cfg: the reference's Ant_init_20kyr_invBMB_invfric_40km
+              with every choice of its harness, 40 km on grounded ice, on
+              the synthetic continent that the port's writer,
+              ufemism2_tpu_torch/tools/antarctica_synthetic.py, writes into
+              the work directory) in f32 on the card: construction (the
+              mesh from the geometry file, the file reads, the initial
+              solve), ANT_INIT_YEARS model years in windows of
+              ANT_WINDOW_YEARS with the component events timed, a
+              forced remesh and ANT_STEPS_AFTER steps on the new mesh; nV,
+              counts, ms a Krylov iteration, sim-yr/hr, volume,
+              RMSE(Hi - Hi_init) (the harness's score), the remesh wall and
+              the kernels' launches; pinned by ANT_INIT_PINS. Then
+              diva_apply on the last operator apply after the remesh,
+              stack_spmv on the new mesh's five-operator stack and
+              heat_columns on the phase's last call, against their plain
+              versions.
+27. antarctica_itm - resumed from 26's restart on its mesh with the rest of
+              the climate chain (the transient-deltaT snapshot climate,
+              realistic insolation, IMAU-ITM, ELRA, the GlacialIndex LMB),
+              ANT_ITM_YEARS model years either side of a forced remesh: the
+              integrated SMB, max |dHb|, the mean firn, the climate, SMB,
+              GIA and LMB event times and the launches of one event each;
+              pinned by ANT_ITM_PINS; diva_apply and heat_columns on the
+              last calls after the remesh, against their plain versions.
+28. small_climate - a coarse Antarctica in f64, card against a CPU process,
+              through a forced remesh: the matrix climate with IMAU-ITM,
+              ELRA and the GlacialIndex LMB, and snapshot_plus_anomalies
+              for the climate and the SMB; equal counts and stateful calls,
+              small's gaps, climate, SMB, firn and dHb within 1e-10; the
+              insolation frame each orbit of the matrix climate reads and
+              how far apart their absorbed insolation is.
+
+With --antarctica-only the script builds the kernels and runs 26-28 alone
+(no result line); --ant-init-years Y makes 26's window Y model years (not
+ANT_INIT_YEARS; the pins are then not held), run in windows of
+ANT_WINDOW_YEARS either way, each printed.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -2234,6 +2271,533 @@ def small_thermo_files_phase(workdir, mesh_s):
 
 
 
+
+# -- the realistic Antarctica stand-in and the climate chain -----------------
+# The reference's flagship realistic test, Ant_init_20kyr_invBMB_invfric_40km
+# (ufemism2_tpu/validation/integrated_tests.py:1343-1400
+# run_antarctica_40km), whose config.cfg is not in the repository, written
+# inline with every choice the harness names (its comment block and
+# overrides): geometry from a file as the initial, present-day and
+# GIA-equilibrium reference; the 'realistic' climate (a RACMO-style
+# snapshot) with lapse-rate corrections; the prescribed SMB; the geothermal
+# flux from a (lon/lat) file; the dHi_dt target from a file; Zoet-Iverson
+# sliding with H_dHdt_flowline roughness nudging; the inverted BMB; 3-D
+# thermodynamics (Huybrechts 1992 rheology, Robin initial temperatures);
+# adaptive remeshing; 40 km on grounded ice and at the grounding line, 80 km
+# on floating ice and at the calving front, 400 km elsewhere, on the
+# domain +-3,040 km of the synthetic data. The data: the port's writer
+# (ufemism2_tpu_torch/tools/antarctica_synthetic.py, the repository's
+# synthetic continent on its 20 km grid, seeded), not BedMachine and RACMO.
+# Cut against the reference: ANT_INIT_YEARS model years (the reference runs
+# 20,000) with one forced remesh at their end (the first fitness check
+# comes 50 years in) and ANT_STEPS_AFTER steps on the new mesh; the
+# schema's solver settings (the reference config's are unknown); f32; the
+# output files off (a restart is written for antarctica_itm).
+ANT_DX = 20e3
+
+
+def ant_init_cfg(files, res=40e3, **over):
+    return dict(dict(
+        choice_refgeo_init_ANT="read_from_file",
+        choice_refgeo_PD_ANT="read_from_file",
+        choice_refgeo_GIAeq_ANT="read_from_file",
+        filename_refgeo_init_ANT=str(files["topo"]),
+        filename_refgeo_PD_ANT=str(files["topo"]),
+        filename_refgeo_GIAeq_ANT=str(files["topo"]),
+        xmin_ANT=-3040e3, xmax_ANT=3040e3, ymin_ANT=-3040e3, ymax_ANT=3040e3,
+        choice_climate_model_ANT="realistic",
+        choice_climate_model_realistic="snapshot",
+        filename_climate_snapshot_ANT=str(files["climate"]),
+        do_lapse_rate_corrections_ANT=True,
+        choice_SMB_model_ANT="prescribed",
+        filename_SMB_prescribed_ANT=str(files["SMB"]),
+        choice_geothermal_heat_flux="read_from_file",
+        filename_geothermal_heat_flux=str(files["ghf"]),
+        do_target_dHi_dt=True,
+        filename_dHi_dt_target_ANT=str(files["dHdt"]),
+        choice_sliding_law="Zoet-Iverson",
+        do_bed_roughness_nudging=True,
+        choice_bed_roughness_nudging_method="H_dHdt_flowline",
+        choice_BMB_model_ANT="inverted",
+        choice_thermo_model="3D_heat_equation",
+        choice_ice_rheology_Glen="Huybrechts1992",
+        choice_initial_ice_temperature_ANT="Robin",
+        allow_mesh_updates=True,
+        maximum_resolution_uniform=400e3,
+        maximum_resolution_grounded_ice=res,
+        maximum_resolution_grounding_line=res, grounding_line_width=res,
+        maximum_resolution_floating_ice=2 * res,
+        maximum_resolution_calving_front=2 * res,
+        calving_front_width=2 * res,
+        maximum_resolution_ice_front=2 * res, ice_front_width=2 * res,
+        nit_Lloyds_algorithm=2, tpu_precision="f32",
+        start_time_of_run=0.0, end_time_of_run=100.0), **over)
+
+
+ANT_INIT_YEARS = 6.0
+ANT_WINDOW_YEARS = 2.0
+ANT_STEPS_AFTER = 3
+# the f32 trajectory of antarctica_init on the card: (steps, n_visc_its,
+# n_Axb_its) at the window's end and after the steps on the new mesh
+ANT_INIT_PINS = (63, 709, 96618)
+
+
+# The second leg, from antarctica_init's restart: the rest of the climate
+# chain at the same width, f32 - the snapshot climate with a transient
+# deltaT (the synthetic dT_atmosphere series) and the CC correction, the
+# realistic insolation (a synthetic Laskar-layout file), IMAU-ITM with
+# uniform firn, ELRA bed deformation and the GlacialIndex LMB (a synthetic
+# glacial-index series), every component event every model year (GIA
+# every two); ANT_ITM_YEARS model years before and after a forced remesh
+# (20 would not fit the script's time), so that the firn, the
+# albedo and dHb cross it.
+def ant_itm_cfg(files, t0, **over):
+    return ant_init_cfg(
+        files,
+        choice_climate_model_ANT="snapshot_plus_transient_deltaT",
+        filename_atmosphere_dT_ANT=str(files["dT_atm"]),
+        choice_insolation_forcing="realistic",
+        filename_insolation=str(files["insolation"]),
+        choice_SMB_model_ANT="IMAU-ITM",
+        choice_SMB_IMAUITM_init_firn_ANT="uniform",
+        choice_GIA_model="ELRA", dt_GIA=2.0,
+        choice_LMB_model_ANT="GlacialIndex",
+        filename_LMB_GI_ANT=str(files["GI"]),
+        warm_LMB_ANT=0.0, cold_LMB_ANT=-2.0,
+        dt_climate=1.0, dt_SMB=1.0, dt_LMB=1.0,
+        start_time_of_run=t0, end_time_of_run=t0 + 100.0, **over)
+
+
+ANT_ITM_YEARS = (1.0, 1.0)
+ANT_ITM_PINS = (83, 905, 124112)
+
+
+@contextlib.contextmanager
+def timed_events(region, names=("climate", "smb", "gia", "lmb")):
+    """Within the block, each component runner of `region` named in
+    `names` is timed call by call (synchronised); yields {name: [s, ...]}.
+    The runners are restored on exit (a remesh needs them unwrapped)."""
+    times = {n: [] for n in names}
+    orig = {n: getattr(region, f"run_{n}") for n in names}
+
+    def timed(n, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[n].append(time.perf_counter() - t)
+            return out
+        return call
+    for n in names:
+        setattr(region, f"run_{n}", timed(n, orig[n]))
+    try:
+        yield times
+    finally:
+        for n in names:
+            setattr(region, f"run_{n}", orig[n])
+
+
+def event_summary(times):
+    return {f"{n}_event_ms": (1e3 * float(np.mean(v)) if v else None)
+            for n, v in times.items()} | {
+        f"{n}_events": len(v) for n, v in times.items()}
+
+
+def event_launches(call):
+    """Kernel launches of one call of `call()` (torch.profiler's count of
+    the runtime's launch calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                            "cuLaunchKernel", "cuLaunchKernelEx"))
+
+
+def ant_window(region, t_end, tag):
+    """run_to(t_end) with the kernels' launches and the GMRES calls
+    counted and the component events timed: (the numbers of the window,
+    the last GMRES call's operator and solution)."""
+    with counted_gmres() as gm, timed_events(region) as ev:
+        zero_counts()
+        s0 = region.state
+        steps0, visc0, axb0 = region.n_dt_ice, s0.n_visc_its, s0.n_Axb_its
+        thermo0 = region.thermo_steps
+        t0_model = region.time
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = region.run_to(t_end)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    axb = state.n_Axb_its - axb0
+    out = dict(t_model_yr=region.time, window_yr=region.time - t0_model,
+               steps=region.n_dt_ice - steps0,
+               n_visc_its=state.n_visc_its - visc0, n_Axb_its=axb,
+               gmres_its=gm["its"], gmres_calls=gm["calls"],
+               gmres_unconverged=gm["unconverged"],
+               thermo_steps=region.thermo_steps - thermo0, wall_s=wall,
+               ms_per_krylov_it=wall * 1e3 / max(axb, 1),
+               sim_yr_per_hr=(region.time - t0_model) / wall * 3600.0,
+               dt_ice=state.dt_ice, **counts, **event_summary(ev))
+    say(tag, **out)
+    assert out["steps"] >= 1 and axb > 0, f"{tag}: no ice step was taken"
+    assert counts["diva_apply_launches"] == gm["its"] + gm["calls"] > 0, \
+        f"{tag}: the path did not go through diva_apply"
+    assert counts["stack_spmv_launches"] > 16 * gm["calls"], \
+        f"{tag}: the path did not go through stack_spmv"
+    return out, {"A": gm["A"], "x": gm["x"]}
+
+
+def ant_scalars(region):
+    """Ice volume and the harness's score, RMSE(Hi - Hi_init) over the
+    vertices (Hi_init: the present-day reference, which is the initial
+    geometry, on the current mesh)."""
+    Hi = region.state.Hi.double().cpu().numpy()
+    Hi_init = np.asarray(region.refgeo_PD[0])
+    return dict(ice_volume_m3=float((region.state.Hi * region.md.A).sum()),
+                rmse_Hi_vs_init_m=float(np.sqrt(((Hi - Hi_init) ** 2)
+                                                .mean())))
+
+
+def antarctica_init_phase(files, workdir, years=ANT_INIT_YEARS):
+    """The stand-in's construction (mesh from the geometry file, the
+    reads, the initial solve), `years` model years in windows of
+    ANT_WINDOW_YEARS, a forced remesh and steps on the new mesh, on the card
+    in f32; writes the restart antarctica_itm resumes from. Then the
+    kernels on the phase's operands: diva_apply on the last operator apply
+    (after the remesh), stack_spmv on the new mesh's five-operator stack,
+    heat_columns on the last call. Returns (numbers, restart path, kernel
+    cases)."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.io.output_files import write_restart_file
+    from ufemism2_tpu_torch.main.region import ModelRegion
+    C = Config(**ant_init_cfg(files))
+    heat_calls = contextlib.ExitStack()
+    last_heat = heat_calls.enter_context(last_heat_call())
+    zero_counts()
+    t0 = time.perf_counter()
+    region = ModelRegion(C, "ANT")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_launches = read_counts()
+    say("antarctica_init_construct", nV=region.mesh.nV,
+        nTri=region.mesh.nTri, seconds=init_s,
+        initial_visc_its=region.state.n_visc_its, **init_launches,
+        **ant_scalars(region))
+    t_end = region.time + years
+    windows = []
+    while region.time < t_end - 1e-6:
+        windows.append(ant_window(
+            region, min(region.time + ANT_WINDOW_YEARS, t_end),
+            "antarctica_init_window")[0])
+    window = {k: sum(w[k] for w in windows) for k in (
+        "window_yr", "steps", "n_visc_its", "n_Axb_its", "gmres_its",
+        "gmres_calls", "gmres_unconverged", "thermo_steps", "wall_s",
+        "diva_apply_launches", "stack_spmv_launches",
+        "heat_columns_launches", "bpa_apply_launches",
+        "line_thomas_launches")}
+    window.update(
+        ms_per_krylov_it=window["wall_s"] * 1e3 / window["n_Axb_its"],
+        sim_yr_per_hr=window["window_yr"] / window["wall_s"] * 3600.0,
+        n_visc_its_by_window=[w["n_visc_its"] for w in windows],
+        wall_s_by_window=[w["wall_s"] for w in windows])
+    t0 = time.perf_counter()
+    region.update_mesh()
+    torch.cuda.synchronize()
+    remesh_s = time.perf_counter() - t0
+    n0 = region.n_dt_ice
+    with counted_gmres() as gm:
+        zero_counts()
+        t0 = time.perf_counter()
+        step_n(region, ANT_STEPS_AFTER)
+        torch.cuda.synchronize()
+        after_s = time.perf_counter() - t0
+        after = read_counts()
+        last = {"A": gm["A"], "x": gm["x"]}
+    heat_calls.close()
+    state = region.state
+    check_state(state, "cuda")
+    pins = (region.n_dt_ice, state.n_visc_its, state.n_Axb_its)
+    out = dict(nV=region.mesh.nV,
+               nTri=region.mesh.nTri, construct_s=init_s,
+               window=window, remesh_s=remesh_s,
+               remesh_parts_s=region.remesh_timings[-1],
+               steps_after=region.n_dt_ice - n0, after_s=after_s,
+               after_launches=after, gmres_its_after=gm["its"],
+               counts=pins, **ant_scalars(region),
+               launches={k: window[k] + after[k] for k in after})
+    say("antarctica_init", **out)
+    assert out["ice_volume_m3"] > 0.0
+    assert region.n_mesh_updates == 1
+    for k in ("diva_apply_launches", "stack_spmv_launches",
+              "heat_columns_launches"):
+        assert out["launches"][k] > 0, (k, out["launches"])
+    assert window["heat_columns_launches"] == window["thermo_steps"], \
+        "one heat_columns launch a thermodynamics step"
+    if years == ANT_INIT_YEARS:
+        assert pins == ANT_INIT_PINS, \
+            f"the f32 antarctica_init trajectory moved: {pins}"
+    path = os.path.join(workdir, "antarctica_init_restart.nc")
+    write_restart_file(path, region.mesh, region.state, region.time,
+                       host_counters={"n_dt_ice": int(region.n_dt_ice)})
+    # the kernels on this phase's operands: the continent's ocean-pressure
+    # front, Zoet-Iverson sliding and the remeshed mesh
+    ops = region.mesh.operators
+    m2 = [ops.M2_ddx_b_b, ops.M2_ddy_b_b, ops.M2_d2dx2_b_b,
+          ops.M2_d2dxdy_b_b, ops.M2_d2dy2_b_b]
+    rng = np.random.default_rng(11)
+    kernel_cases = dict(
+        diva=diva_check("diva_apply_antarctica_init_last_apply", last["A"],
+                        torch.cat(last["x"]), [m.tocsr() for m in m2]),
+        stack=kernel_case(
+            "M2_stack_5ops_d2_antarctica_float32_bf16x", m2,
+            rng.standard_normal((region.mesh.nTri, 2)) * 300.0,
+            torch.float32, True),
+        heat=heat_case("heat_columns_antarctica_init_last_call",
+                       last_heat["args"]))
+    return out, path, kernel_cases
+
+
+def antarctica_itm_phase(files, restart, check_pins=True):
+    """The second leg, resumed from antarctica_init's restart on its
+    mesh: ANT_ITM_YEARS model years before and after a forced remesh, the
+    component events timed, the launches of one event of each after the
+    measurement; then diva_apply on the last operator apply (after the
+    remesh) and heat_columns on the last call against their plain
+    versions. Returns (numbers, kernel cases)."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.io.output_files import mesh_from_restart
+    from ufemism2_tpu_torch.io.ncio import NCFile
+    from ufemism2_tpu_torch.main.region import ModelRegion
+    with NCFile(restart) as nc:
+        t_restart = float(np.asarray(nc.read("time")).reshape(-1)[-1])
+    C = Config(**ant_itm_cfg(files, t_restart))
+    heat_calls = contextlib.ExitStack()
+    last_heat = heat_calls.enter_context(last_heat_call())
+    t0 = time.perf_counter()
+    region = ModelRegion(C, "ANT", mesh=mesh_from_restart(restart, C))
+    region.resume_from_restart(restart)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    smb = region.run_smb
+    legs = [ant_window(region, region.time + ANT_ITM_YEARS[0],
+                       "antarctica_itm_before_remesh")[0]]
+    firn_before = float(region.run_smb.FirnDepth.mean())
+    t0 = time.perf_counter()
+    region.update_mesh()
+    torch.cuda.synchronize()
+    remesh_s = time.perf_counter() - t0
+    assert region.run_smb is not smb and region.run_smb.calls > smb.calls
+    leg, last = ant_window(region, region.time + ANT_ITM_YEARS[1],
+                           "antarctica_itm_after_remesh")
+    legs.append(leg)
+    heat_calls.close()
+    state = region.state
+    check_state(state, "cuda")
+    smb = region.run_smb
+    pins = (region.n_dt_ice, state.n_visc_its, state.n_Axb_its)
+    out = dict(nV=region.mesh.nV, nTri=region.mesh.nTri, resume_s=resume_s,
+               t_model_yr=region.time, legs=legs, remesh_s=remesh_s,
+               remesh_parts_s=region.remesh_timings[-1], counts=pins,
+               smb_calls=smb.calls, gia_events=region.gia_events,
+               integrated_SMB_m3_per_yr=float((region.SMB
+                                               * region.md.A).sum()),
+               max_abs_dHb_m=float(state.dHb.abs().max()),
+               mean_firn_m=float(smb.FirnDepth.mean()),
+               mean_firn_before_remesh_m=firn_before,
+               LMB_min=float(region.LMB.min()), **ant_scalars(region),
+               heat_last_call_after_remesh=leg["heat_columns_launches"] > 0,
+               launches={k: sum(leg[k] for leg in legs) for k in (
+                   "diva_apply_launches", "stack_spmv_launches",
+                   "heat_columns_launches")})
+    # one more event of each, profiled, after everything measured (the
+    # SMB and the matrix climate advance their state on every call)
+    s, t = state, region.time
+    masks = region._masks_fracs(s.Hi, s.Hb, s.SL)[0]
+    out["event_launches"] = dict(
+        climate=event_launches(lambda: region.run_climate(t, s)),
+        smb=event_launches(lambda: region.run_smb(t, s,
+                                                  climate=region.climate)),
+        gia=event_launches(lambda: region.run_gia(t, s, C.dt_GIA)),
+        lmb=event_launches(lambda: region.run_lmb(t, s, masks)))
+    say("antarctica_itm", **out)
+    assert region.gia_events >= 1 and out["max_abs_dHb_m"] > 0.0
+    assert np.isfinite(out["integrated_SMB_m3_per_yr"])
+    assert out["ice_volume_m3"] > 0.0
+    for k, v in out["launches"].items():
+        assert v > 0, (k, out["launches"])
+    if check_pins:
+        assert pins == ANT_ITM_PINS, \
+            f"the f32 antarctica_itm trajectory moved: {pins}"
+    kernel_cases = dict(
+        diva=diva_check("diva_apply_antarctica_itm_last_apply", last["A"],
+                        torch.cat(last["x"])),
+        heat=heat_case("heat_columns_antarctica_itm_last_call",
+                       last_heat["args"]))
+    return out, kernel_cases
+
+
+# small_climate: a coarse Antarctica (600 km on grounded ice) in f64 on the
+# writer's 80 km grid, card against a CPU process, through two steps, a
+# forced remesh and two more, every component event every 0.2 years: the
+# matrix climate (PD = the RACMO-style snapshot, the synthetic PI, warm and
+# cold snapshots with winds, CO2 and insolation) with IMAU-ITM, ELRA and
+# the GlacialIndex LMB; and snapshot_plus_anomalies for both the climate
+# and the SMB. tests/test_torch_antarctica.py holds the JAX package to the
+# port on the first pattern's mesh.
+SMALL_CLIMATE_DX = 80e3
+SMALL_CLIMATE_TIMES = ((0.2, 0.4), (0.6, 0.8))
+
+
+def small_climate_cfg(files, which):
+    res = 600e3
+    base = dict(
+        choice_refgeo_init_ANT="read_from_file",
+        choice_refgeo_PD_ANT="read_from_file",
+        choice_refgeo_GIAeq_ANT="read_from_file",
+        filename_refgeo_init_ANT=str(files["topo"]),
+        filename_refgeo_PD_ANT=str(files["topo"]),
+        filename_refgeo_GIAeq_ANT=str(files["topo"]),
+        xmin_ANT=-3040e3, xmax_ANT=3040e3, ymin_ANT=-3040e3, ymax_ANT=3040e3,
+        choice_BMB_model_ANT="uniform", uniform_BMB=0.0,
+        choice_thermo_model="none", allow_mesh_updates=True,
+        maximum_resolution_uniform=800e3,
+        maximum_resolution_grounded_ice=res,
+        maximum_resolution_grounding_line=res, grounding_line_width=res,
+        maximum_resolution_floating_ice=2 * res,
+        maximum_resolution_calving_front=2 * res,
+        calving_front_width=2 * res,
+        maximum_resolution_ice_front=2 * res, ice_front_width=2 * res,
+        nit_Lloyds_algorithm=2, tpu_precision="f64", visc_it_nit=3,
+        pc_nit_max=2, dt_climate=0.2, dt_SMB=0.2, dt_LMB=0.2, dt_GIA=0.2,
+        start_time_of_run=0.0, end_time_of_run=1.0)
+    if which == "matrix":
+        return dict(
+            base, choice_climate_model_ANT="matrix",
+            climate_matrix_filename_PD_obs_climate=str(files["climate"]),
+            climate_matrix_filename_climate_snapshot_PI=str(files["PI"]),
+            climate_matrix_filename_climate_snapshot_warm=str(files["warm"]),
+            climate_matrix_filename_climate_snapshot_cold=str(files["cold"]),
+            climate_matrix_biascorrect_warm=True,
+            climate_matrix_biascorrect_cold=True,
+            choice_matrix_forcing="CO2_direct",
+            filename_CO2_record=str(files["CO2"]),
+            choice_insolation_forcing="realistic",
+            filename_insolation=str(files["insolation"]),
+            climate_matrix_warm_orbit_time=0.0,
+            climate_matrix_cold_orbit_time=-21000.0,
+            choice_SMB_model_ANT="IMAU-ITM", choice_GIA_model="ELRA",
+            choice_LMB_model_ANT="GlacialIndex",
+            filename_LMB_GI_ANT=str(files["GI"]),
+            warm_LMB_ANT=0.0, cold_LMB_ANT=-2.0)
+    return dict(
+        base, choice_climate_model_ANT="snapshot_plus_anomalies",
+        climate_snp_p_anml_filename_snapshot_ANT=str(files["climate"]),
+        climate_snp_p_anml_filename_anomalies_ANT=str(files["clim_anom"]),
+        choice_SMB_model_ANT="snapshot_plus_anomalies",
+        SMB_snp_p_anml_filename_snapshot_SMB=str(files["SMB"]),
+        SMB_snp_p_anml_filename_anomalies=str(files["SMB_anom"]))
+
+
+def small_climate_run(files, which, device):
+    """One small_climate configuration on `device`: the counts after each
+    run_to and the end's fields, as host numbers and f64 arrays."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.main.region import ModelRegion
+    r = ModelRegion(Config(**small_climate_cfg(files, which)), "ANT",
+                    device=device)
+    counts = []
+    t0 = time.perf_counter()
+    for k, times in enumerate(SMALL_CLIMATE_TIMES):
+        if k:
+            r.update_mesh()
+        for t in times:
+            s = r.run_to(t)
+            counts.append((r.n_dt_ice, s.n_visc_its, s.n_Axb_its))
+    seconds = time.perf_counter() - t0
+
+    def host(x):
+        return x.double().cpu().numpy()
+    fields = {k: host(getattr(r.state, k)) for k in (
+        "Hi", "Hb", "dHb", "u_vav_b", "v_vav_b")}
+    fields.update(SMB=host(r.SMB), LMB=host(r.LMB),
+                  T2m=host(r.climate["T2m"]),
+                  Precip=host(r.climate["Precip"]))
+    smb_calls = getattr(r.run_smb, "calls", None)
+    climate_calls = getattr(r.run_climate, "calls", None)
+    if smb_calls is not None:
+        fields["FirnDepth"] = host(r.run_smb.FirnDepth)
+    orbits = None
+    if climate_calls is not None:
+        fields["albedo"] = host(r.run_climate._albedo)
+        orbits = matrix_orbits(r.run_climate)
+    return dict(nV=r.mesh.nV, counts=counts, fields=fields,
+                seconds=seconds, smb_calls=smb_calls,
+                climate_calls=climate_calls, gia_events=r.gia_events,
+                orbits=orbits)
+
+
+def matrix_orbits(m):
+    """Which insolation frame each orbit of the matrix climate `m` reads
+    (its times clamped to the preloaded window, as the JAX package does;
+    ROADMAP.md C) and how far apart the warm and the cold snapshot's
+    absorbed insolation lie, relative to the warm one's: the denominator
+    of the insolation weight."""
+    t0, t1 = float(m.insol._t[0]), float(m.insol._t[-1])
+    read = {k: min(max(getattr(m.C, f"climate_matrix_{k}_orbit_time"), t0),
+                   t1) for k in ("warm", "cold")}
+    w, c = m.warm["I_abs"].sum(), m.cold["I_abs"].sum()
+    return dict(frame_read=read, I_abs_apart=float((w - c).abs() / w))
+
+
+def cpu_small_climate(data_dir, out):
+    """The CPU's small_climate runs (start_cpu_job), saved to `out`."""
+    torch.set_num_threads(2)
+    from ufemism2_tpu_torch.tools.antarctica_synthetic import NAMES
+    files = {k: os.path.join(data_dir, n) for k, n in NAMES.items()}
+    torch.save({w: small_climate_run(files, w, "cpu")
+                for w in ("matrix", "anomalies")}, out)
+
+
+def small_climate_phase(files, cpu_job):
+    """small_climate on the card against the CPU process: equal counts
+    after every run_to, the same number of stateful calls, thickness and
+    velocity within small's gaps, the climate, the SMB and dHb within
+    1e-10 of their largest value."""
+    proc, cpu_out = cpu_job
+    card = {w: small_climate_run(files, w, "cuda")
+            for w in ("matrix", "anomalies")}
+    cpu, cpu_wait_s = finish_cpu_job(proc, cpu_out, "small_climate")
+    for w in card:
+        a, b = cpu[w], card[w]
+        gaps = {k: float(np.abs(a["fields"][k] - b["fields"][k]).max()
+                         / max(np.abs(a["fields"][k]).max(), 1e-300))
+                for k in b["fields"]}
+        say(f"small_climate_{w}", nV=b["nV"],
+            counts=[a["counts"], b["counts"]], rel_gap=gaps,
+            smb_calls=[a["smb_calls"], b["smb_calls"]],
+            climate_calls=[a["climate_calls"], b["climate_calls"]],
+            gia_events=[a["gia_events"], b["gia_events"]],
+            orbits=b["orbits"],
+            seconds_cpu=a["seconds"], seconds_card=b["seconds"],
+            cpu_wait_s=cpu_wait_s)
+        assert a["counts"] == b["counts"], (w, a["counts"], b["counts"])
+        assert (a["smb_calls"], a["climate_calls"], a["gia_events"]) == \
+            (b["smb_calls"], b["climate_calls"], b["gia_events"])
+        assert gaps["Hi"] < 1e-6 and gaps["u_vav_b"] < 1e-5 \
+            and gaps["v_vav_b"] < 1e-5, (w, gaps)
+        for k in ("T2m", "Precip", "SMB", "dHb", "FirnDepth", "albedo"):
+            if k in gaps:
+                assert gaps[k] <= 1e-10, (w, k, gaps)
+    assert card["matrix"]["gia_events"] > 0
+    return card
+
+
 def check_state(state, device_type):
     """Every tensor of the state finite and on the device."""
     import dataclasses
@@ -2965,12 +3529,53 @@ def bpa_slice_finish(ih, workdir):
               "ufemism2_tpu/core/ice/bpa.py:299", "line_thomas_launches")]
 
 
+def antarctica_phases(workdir, years=ANT_INIT_YEARS):
+    """antarctica_init (its window `years` model years), antarctica_itm and
+    small_climate, with the CPU's small_climate runs going on beside the
+    card's from the start; the synthetic data written by the port's writer
+    into workdir. Returns (init numbers, itm numbers, kernel cases of
+    each)."""
+    from ufemism2_tpu_torch.tools.antarctica_synthetic import write_all
+    t0 = time.perf_counter()
+    files = write_all(os.path.join(workdir, "ant20"), ANT_DX)
+    small = write_all(os.path.join(workdir, "ant80"), SMALL_CLIMATE_DX)
+    say("antarctica_data", seconds=time.perf_counter() - t0,
+        grid_km=[ANT_DX / 1e3, SMALL_CLIMATE_DX / 1e3],
+        files=sorted(files))
+    cpu_out = os.path.join(workdir, "small_climate_cpu.pt")
+    proc = start_cpu_job("cpu_small_climate",
+                         os.path.join(workdir, "ant80"), cpu_out)
+    try:
+        ant_init, restart, init_cases = antarctica_init_phase(
+            files, workdir, years)
+        ant_itm, itm_cases = antarctica_itm_phase(
+            files, restart, check_pins=years == ANT_INIT_YEARS)
+        small_climate_phase(small, (proc, cpu_out))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return ant_init, ant_itm, (init_cases, itm_cases)
+
+
+def ant_launches(ant_init, ant_itm, key):
+    """launches_by_path entries of the two Antarctica phases."""
+    return {"antarctica_init": ant_init["launches"][key],
+            "antarctica_itm": ant_itm["launches"][key]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
                     help="profile this many further ice steps")
     ap.add_argument("--profile-out", default=None, metavar="FILE",
                     help="write the profiler's table of operators here")
+    ap.add_argument("--antarctica-only", action="store_true",
+                    help="build the kernels and run the Antarctica phases "
+                         "alone (no result line)")
+    ap.add_argument("--ant-init-years", type=float, default=ANT_INIT_YEARS,
+                    metavar="Y", help="antarctica_init's window in model "
+                    "years (pins held only at the default)")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -3007,6 +3612,11 @@ def main():
     say("build", seconds=time.perf_counter() - t0,
         sources={f"ufemism2_tpu_torch/csrc/{n}.cu": s
                  for n, s in built.items()})
+    if args.antarctica_only:
+        with tempfile.TemporaryDirectory() as workdir:
+            antarctica_phases(workdir, args.ant_init_years)
+        say("done", seconds=time.perf_counter() - t_start)
+        return 0
 
     # -- the ISMIP-HOM mesh (host) and the BPA kernels -----------------------
     ih = bpa_slice_start()
@@ -3165,6 +3775,13 @@ def main():
     # -- 20-25. ISMIP-HOM: BPA and the hybrid DIVA/BPA ----------------------
     with tempfile.TemporaryDirectory() as workdir:
         ih_nums, ih_kernels = bpa_slice_finish(ih, workdir)
+    # -- 26-28. the realistic Antarctica stand-in, the climate chain ------
+    with tempfile.TemporaryDirectory() as workdir:
+        ant_init, ant_itm, (init_cases, itm_cases) = antarctica_phases(
+            workdir, args.ant_init_years)
+    diva_cases += [init_cases["diva"], itm_cases["diva"]]
+    cases.append(init_cases["stack"])
+    heat_cases += [init_cases["heat"], itm_cases["heat"]]
     ir_pins = (IR_STEPS, IR_VISC_ITS, IR_AXB_ITS)
     ir_got = tuple(ir["f32"][k] for k in ("steps", "n_visc_its",
                                           "n_Axb_its"))
@@ -3188,7 +3805,9 @@ def main():
                              **{k: v["stack_spmv_launches"]
                                 for k, v in new_paths.items()},
                              "small_thermo_files":
-                                 stf["stack_spmv_launches"]},
+                                 stf["stack_spmv_launches"],
+                             **ant_launches(ant_init, ant_itm,
+                                            "stack_spmv_launches")},
         "max_abs_err": hot["max_abs_err"], "ms": hot["ms"],
         "device_ms": hot["device_ms"],
         "plain_ms": hot["plain_ms"], "bound_ms": hot["bound_ms"],
@@ -3209,7 +3828,9 @@ def main():
                              **{k: v["diva_apply_launches"]
                                 for k, v in new_paths.items()},
                              "small_thermo_files":
-                                 stf["diva_apply_launches"]},
+                                 stf["diva_apply_launches"],
+                             **ant_launches(ant_init, ant_itm,
+                                            "diva_apply_launches")},
         "max_abs_err": hot_diva["max_abs_err"], "ms": hot_diva["ms"],
         "device_ms": hot_diva["device_ms"],
         "plain_ms": hot_diva["plain_ms"], "bound_ms": hot_diva["bound_ms"],
@@ -3228,7 +3849,9 @@ def main():
                              "mismipplus_resume":
                                  mpr["heat_columns_launches"],
                              "small_thermo_files":
-                                 stf["heat_columns_launches"]},
+                                 stf["heat_columns_launches"],
+                             **ant_launches(ant_init, ant_itm,
+                                            "heat_columns_launches")},
         "max_abs_err": hot_heat["max_abs_err"], "ms": hot_heat["ms"],
         "device_ms": hot_heat["device_ms"],
         "plain_ms": hot_heat["plain_ms"], "bound_ms": hot_heat["bound_ms"],

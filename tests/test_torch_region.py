@@ -124,13 +124,13 @@ def test_default_device_is_the_card(env):
 
 
 @pytest.mark.parametrize("over, word", [
-    (dict(choice_climate_model_ANT="matrix"), "choice_climate_model"),
+    (dict(choice_basal_hydrology_model="Salle2025"), "Salle2025"),
     (dict(choice_tracer_tracking_model="particles"),
      "choice_tracer_tracking_model"),
     (dict(choice_BMB_model_ANT="laddie"), "A.17"),
-    (dict(choice_SMB_model_ANT="IMAU-ITM"), "choice_SMB_model"),
+    (dict(choice_SMB_model_ANT="reconstructed"), "choice_SMB_model"),
     (dict(choice_BMB_model_ANT="laddie_py"), "choice_BMB_model"),
-    (dict(choice_GIA_model="ELRA"), "choice_GIA_model"),
+    (dict(choice_GIA_model="SELEN"), "choice_GIA_model"),
     (dict(choice_regions_of_interest="PineIsland"),
      "choice_regions_of_interest"),
     (dict(tpu_n_devices=4), "tpu_n_devices"),

@@ -96,8 +96,8 @@ def test_uniform_rheology_thermodynamics_leaves_the_ice_alone(env):
 
 
 def test_thermo_config_refusals(env):
-    _, Ct = configs(**THERMO, choice_climate_model_ANT="idealised")
-    with pytest.raises(NotImplementedError, match="choice_climate_model"):
+    _, Ct = configs(**THERMO, choice_SMB_model_ANT="reconstructed")
+    with pytest.raises(NotImplementedError, match="choice_SMB_model"):
         ModelRegion(Ct, "ANT", mesh=env.mesh_t, device="cpu")
     # (a geothermal flux read from a file is ported:
     # tests/test_torch_thermo.py test_geothermal_flux)

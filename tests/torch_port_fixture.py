@@ -264,3 +264,165 @@ def ismip_transect(mesh, u_3D_b):
     u = np.asarray(u_3D_b.detach().cpu().numpy() if hasattr(u_3D_b, "detach")
                    else u_3D_b, np.float64)
     return tr.sample_triangles(u)[:, 0]
+
+
+def copy_to_nc4(path, out):
+    """The port's NetCDF classic file at `path` rewritten through the JAX
+    package's NCFile (NetCDF4) at `out`, variable by variable with its
+    dimensions; returns out."""
+    from ufemism2_tpu.io.ncio import NCFile as JaxNC
+    from ufemism2_tpu_torch.io.ncio import NCFile as PortNC
+    with PortNC(str(path)) as src, JaxNC(str(out), "w") as dst:
+        for d, n in src.dims().items():
+            dst.def_dim(d, n)
+        for name in src.variables():
+            dst.def_var(name, tuple(src.dim_names(name)))
+            dst.put(name, np.asarray(src.read(name), dtype=np.float64))
+    return str(out)
+
+
+class ConfigWith:
+    """A Config read through getattr with extra keys the schema does not
+    define (both packages' IMAU-ITM read the firn file's name that way)."""
+
+    def __init__(self, C, **extra):
+        self._C, self._extra = C, extra
+
+    def __getattr__(self, k):
+        if k in self._extra:
+            return self._extra[k]
+        return getattr(self._C, k)
+
+
+def polar_meshes(half=300e3, res=30e3):
+    """(JAX-package mesh, port mesh): a uniform mesh on the square
+    [-half, half]^2 around the South Pole, with the ANT projection's
+    lon/lat."""
+    from ufemism2_tpu.mesh import build_uniform_mesh
+    from ufemism2_tpu.mesh.projections import inverse_oblique_sg_projection
+    from ufemism2_tpu_torch.convert import mesh_from_numpy
+    m = build_uniform_mesh(-half, half, -half, half, res)
+    m.proj = (0.0, -90.0, 71.0)
+    m.lon, m.lat = inverse_oblique_sg_projection(m.V[:, 0], m.V[:, 1],
+                                                 *m.proj)
+    return m, mesh_from_numpy(mesh_to_numpy(m))
+
+
+def climate_files(tmp_path, half=300e3, seed=3, zero_precip=False):
+    """Seeded synthetic inputs of the climate chain on an x/y grid over
+    [-half, half]^2 (and a global lon/lat grid), each written by both
+    packages (write_nc_pair): {name: (JAX file, port file)}. Names:
+    snapshot (Hs, T2m, Precip), anomalies (T2m_anomaly, Precip_anomaly,
+    three frames), dT (a dT_atmosphere series), insolation (Laskar layout,
+    Q_TOA at six times), GI, CO2, SMB (a snapshot), SMB_anomalies, PD, PI,
+    warm and cold (GCM snapshots with winds; the cold one thicker, colder
+    and drier; zero_precip: the warm snapshot's precipitation is 0 on part
+    of the grid, which the matrix climate's 1e-300 floors meet)."""
+    rng = np.random.default_rng(seed)
+    x = np.linspace(-1.1 * half, 1.1 * half, 23)
+    y = np.linspace(-1.1 * half, 1.1 * half, 19)
+    X, Y = np.meshgrid(x, y, indexing="ij")
+    R = np.hypot(X, Y) / half
+    xy = {"x": len(x), "y": len(y)}
+    axes = {"x": (("x",), x), "y": (("y",), y)}
+    mon = {"month": (("month",), np.arange(1.0, 13.0))}
+    cyc = np.cos(2 * np.pi * (np.arange(12) + 0.5) / 12.0)[:, None, None]
+
+    def smooth(amp):
+        from scipy.ndimage import gaussian_filter
+        f = gaussian_filter(rng.standard_normal(X.shape), 2.0)
+        return amp * f / np.abs(f).max()
+
+    Hs = np.maximum(0.0, 2500.0 * (1.0 - R ** 2) + smooth(200.0))
+    T2m = (250.0 - 0.006 * Hs + smooth(3.0))[None] + 12.0 * cyc
+    Precip = (0.3 * np.exp(-Hs / 1500.0) + 0.02)[None] * (1 + 0.2 * cyc)
+    files = {}
+
+    def pair(name, dims, variables):
+        files[name] = write_nc_pair(tmp_path, name, dims, variables)
+
+    def snapshot(Hs_, T_, P_, winds=None):
+        v = dict(axes, **mon, Hs=(("x", "y"), Hs_),
+                 T2m=(("month", "x", "y"), T_),
+                 Precip=(("month", "x", "y"), P_))
+        if winds is not None:
+            v["Wind_WE"] = (("month", "x", "y"), winds[0])
+            v["Wind_SN"] = (("month", "x", "y"), winds[1])
+        return dict(xy, month=12), v
+
+    pair("snapshot", *snapshot(Hs, T2m, Precip))
+    t3 = np.array([0.0, 10.0, 30.0])
+    k = np.arange(3.0)[:, None, None, None]
+    pair("anomalies", dict(xy, month=12, time=3), dict(
+        axes, **mon, time=(("time",), t3),
+        T2m_anomaly=(("time", "month", "x", "y"),
+                     k * (0.7 + 0.1 * cyc[None]) + 0.0 * X),
+        Precip_anomaly=(("time", "month", "x", "y"),
+                        -k * 0.02 * np.exp(-Hs / 800.0)[None, None]
+                        * np.ones((1, 12, 1, 1)))))
+    pair("SMB", dict(xy), dict(axes, SMB=(("x", "y"), 0.4 - 0.1 * R)))
+    pair("SMB_anomalies", dict(xy, time=3), dict(
+        axes, time=(("time",), t3),
+        SMB_anomaly=(("time", "x", "y"),
+                     -np.arange(3.0)[:, None, None] * 0.05 * R[None])))
+    for name, var, t, v in (
+            ("dT", "dT_atmosphere", [0.0, 5.0, 20.0], [0.0, 0.8, 2.5]),
+            ("GI", "GI", [-100.0, 0.0, 7.0, 50.0], [1.0, 0.6, 0.25, 0.0]),
+            ("CO2", "CO2", [-30000.0, -21000.0, 0.0, 50.0],
+             [230.0, 190.0, 280.0, 300.0])):
+        pair(name, {"time": len(t)}, {"time": (("time",), np.array(t)),
+                                      var: (("time",), np.array(v))})
+    lon = np.arange(0.0, 360.0, 30.0)
+    lat = np.arange(-90.0, 90.1, 15.0)
+    # insolation: the frames of the tests' windows (-5 to 40) share one
+    # annual mean and differ in the amplitude of their seasonal cycle, so
+    # that interpolating in time changes the result; the orbit frames
+    # (-30000, -21000) also have a lower annual mean, so that the matrix
+    # climate's warm (0) and cold (-21000) orbits absorb different
+    # insolation. A run whose window starts at 0 does not load them
+    # (test_torch_climate_matrix.py test_matrix_orbit_frames_clamped)
+    t_ins = np.array([-30000.0, -21000.0, -5.0, 0.0, 10.0, 40.0])
+    mean = np.array([0.985, 0.97, 1.0, 1.0, 1.0, 1.0])
+    amp = np.array([1.04, 0.96, 1.03, 1.0, 0.97, 1.05])
+    Q = (250.0 * mean[:, None, None, None]
+         - 230.0 * np.sin(np.deg2rad(lat))[None, None, None, :]
+         * cyc.reshape(1, 12, 1, 1) * amp[:, None, None, None]
+         + 3.0 * np.cos(np.deg2rad(lon))[None, None, :, None])
+    pair("insolation", {"time": 6, "month": 12, "lon": len(lon),
+                        "lat": len(lat)}, {
+        "time": (("time",), t_ins), **mon, "lon": (("lon",), lon),
+        "lat": (("lat",), lat),
+        "Q_TOA": (("time", "month", "lon", "lat"), np.maximum(Q, 0.0))})
+    winds = (6.0 + smooth(2.0)[None] + cyc, -2.0 + smooth(1.5)[None] * cyc)
+    pair("PD", *snapshot(Hs, T2m, Precip, winds))
+    pair("PI", *snapshot(Hs, T2m + 0.7, Precip * 1.15, winds))
+    P_warm = Precip * 1.2
+    if zero_precip:
+        P_warm = np.where((X > 0.3 * half)[None], 0.0, P_warm)
+    pair("warm", *snapshot(Hs, T2m + 2.0, P_warm, winds))
+    Hs_cold = np.where(Hs > 0.0, Hs + 400.0 * (1.0 - R ** 2), 0.0)
+    pair("cold", *snapshot(Hs_cold, T2m - 10.0 - 0.006 * (Hs_cold - Hs),
+                           Precip * 0.6, winds))
+    return files
+
+
+def climate_state(mesh, rng, scale=1.0):
+    """(JAX-side state, port-side state) namespaces with Hi, Hb, SL, Hs,
+    TAF and dHb on the mesh's vertices: an ice sheet over a bed that
+    falls below sea level at the margin, open ocean beyond it."""
+    from types import SimpleNamespace
+    import jax.numpy as jnp
+    R = np.hypot(mesh.V[:, 0], mesh.V[:, 1]) / np.abs(mesh.V).max()
+    Hb = 800.0 - 1800.0 * R ** 2 + 30.0 * rng.standard_normal(len(R))
+    Hi = np.where(R < 0.8, scale * 2600.0 * np.sqrt(np.clip(
+        1.0 - (R / 0.8) ** 2, 0.0, 1.0)), 0.0)
+    SL = np.zeros_like(Hi)
+    rho = 917.0 / 1027.0
+    Hs = np.where(Hi * rho > SL - Hb, Hi + Hb, SL + Hi * (1.0 - rho))
+    Hs = np.where(Hi > 0.0, Hs, np.maximum(Hb, SL))
+    TAF = Hi - np.maximum(0.0, (SL - Hb) * (1027.0 / 917.0))
+    f = dict(Hi=Hi, Hb=Hb, SL=SL, Hs=Hs, TAF=TAF,
+             dHb=5.0 * rng.standard_normal(len(R)))
+    return (SimpleNamespace(**{k: jnp.asarray(v) for k, v in f.items()}),
+            SimpleNamespace(**{k: torch.from_numpy(v.copy())
+                               for k, v in f.items()}))

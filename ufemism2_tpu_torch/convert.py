@@ -21,6 +21,10 @@ from .ops.sparse import EllStack, ell_stack_from_csr
 _HOST_SCALARS = {"t_Hi_prev": float, "t_Hi_next": float, "dt_ice": float,
                  "n_visc_its": int, "n_Axb_its": int}
 _PC_SCALARS = ("dt_n", "dt_np1", "eta_n", "eta_np1")
+# the carried state of the stateful component runners
+_CARRIED = {"SMB_IMAU_ITM": ("FirnDepth", "MeltPreviousYear", "Albedo"),
+            "climate_matrix": ("_firn", "_melt_yr", "_albedo", "_T2m",
+                               "_Precip")}
 
 
 def _tensor(a, device, dtype):
@@ -102,7 +106,10 @@ def component_state_from_numpy(region, fields: dict, device, dtype):
     optional): 'bed_roughness' (the BedRoughnessState's field, also
     written into the ice state), 'BMB_inverted' (the inverted BMB's
     cache), 'ocean_deltaT' and 'ocean_t_prev' (the snapshot+nudge2D
-    ocean's offset and the time of its last nudge)."""
+    ocean's offset and the time of its last nudge), 'SMB_IMAU_ITM' (a dict
+    of IMAU-ITM's FirnDepth, MeltPreviousYear and Albedo) and
+    'climate_matrix' (a dict of the matrix climate's carried _firn,
+    _melt_yr, _albedo, _T2m and _Precip)."""
     from .models.bed_roughness import BedRoughnessState
     device = resolve_device(device)
     if "bed_roughness" in fields:
@@ -118,4 +125,12 @@ def component_state_from_numpy(region, fields: dict, device, dtype):
     if "ocean_t_prev" in fields:
         t = fields["ocean_t_prev"]
         region.run_ocean._t_prev = None if t is None else float(t)
+    for key, runner in (("SMB_IMAU_ITM", getattr(region, "run_smb", None)),
+                        ("climate_matrix",
+                         getattr(region, "run_climate", None))):
+        for name, v in fields.get(key, {}).items():
+            if name not in _CARRIED[key] or not hasattr(runner, name):
+                raise ValueError(f"{key}: '{name}' is not state of the "
+                                 "region's runner")
+            setattr(runner, name, _tensor(v, device, dtype))
     return region

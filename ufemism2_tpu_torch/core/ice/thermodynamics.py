@@ -296,8 +296,10 @@ def make_heat_solver(C, md: MeshData):
         # reference's float64 system widens it)
         q_base = (dz_base * Q_base_grnd
                   / (dzz[:, nz - 1] * Ki[:, nz - 1])).to(torch.float64)
+        # float32 where a file's geothermal flux keeps the run's float32
+        # type; the JAX package's float64 solution widens it (jnp.where)
         T_robin = robin_solution(C, md, Hi_eff, Ti_pmp, masks, T_surf,
-                                 SMB, geothermal)
+                                 SMB, geothermal).to(torch.float64)
         thin = Hi_eff < C.Hi_min_thermo
         return heat_columns(
             Ti, c_ddzeta, c_d2dzeta2, rhs, T_surf, q_base, T_base_float,

@@ -11,18 +11,18 @@ file and the adaptive mesh updates that rebuild it from the evolving
 geometry, the stress balances none/SIA/SSA/DIVA/SIA+SSA (with the
 ocean-pressure calving front), every ocean model, the SMB, BMB, LMB and
 AMB models but those listed below, bed roughness (uniform, parameterised
-or read from a file) and its nudging, target thinning rates, the 'none'
-climate, the 3-D heat equation (fused into the ice-step loop as the
+or read from a file) and its nudging, target thinning rates, every
+climate (with insolation and the matrix method), the ELRA bed deformation,
+the 3-D heat equation (fused into the ice-step loop as the
 reference's make_pc_multistep does), a fixed or prescribed sea level, the
 MISMIP+ flow-factor tuning slot, the output (the scalars in
 `scalars_history` and, with an output directory, the NetCDF mesh, grid,
 scalar, transect, ISMIP and restart files of io/ and models/transects.py),
 restarts and the checksum log. What is still missing raises
 NotImplementedError at construction, naming the choice and its ROADMAP
-item: climates other than 'none' and the SMB models that need one
-(IMAU-ITM, snapshot_plus_anomalies, reconstructed; A.15), GIA and tracers
-(A.15), the ROI polygons (A.15), Salle2025 hydrology and the LADDIE melt
-(A.17), and more than one device (A.19).
+item: the reconstructed SMB and the ROI polygons it needs, and tracers
+(A.15), Salle2025 hydrology and the LADDIE melt (A.17), and more than one
+device (A.19).
 """
 
 from __future__ import annotations
@@ -68,6 +68,7 @@ from ..models.bmb import make_run_bmb
 from ..models.lmb import make_run_lmb
 from ..models.amb import make_run_amb
 from ..models.climate import make_run_climate
+from ..models.gia import make_run_gia
 from ..models.ocean import make_run_ocean
 from ..models.bed_roughness import (BedRoughnessState, initial_bed_roughness,
                                     make_run_bed_roughness_nudging)
@@ -99,14 +100,11 @@ def _refuse(C, key, missing, what):
 def _check_slice(C, name):
     """Refuse, by name, every configuration choice the port still lacks."""
     _require(C, "choice_thermo_model", ("none", "3D_heat_equation"))
-    _require(C, f"choice_climate_model_{name}", ("none",),
-             "the climate chain, ROADMAP A.15")
-    _refuse(C, f"choice_SMB_model_{name}",
-            ("IMAU-ITM", "snapshot_plus_anomalies", "reconstructed"),
-            "it needs the climate chain, ROADMAP A.15")
+    _refuse(C, f"choice_SMB_model_{name}", ("reconstructed",),
+            "it needs the ROI polygons, ROADMAP A.15")
     _refuse(C, f"choice_BMB_model_{name}", ("laddie",),
             "LADDIE, ROADMAP A.17")
-    _require(C, "choice_GIA_model", ("none",), "GIA, ROADMAP A.15")
+    _require(C, "choice_GIA_model", ("none", "ELRA"))
     _require(C, "choice_sealevel_model", ("fixed", "prescribed"))
     _require(C, "choice_tracer_tracking_model", ("none",),
              "tracers, ROADMAP A.15")
@@ -203,6 +201,7 @@ class ModelRegion:
                 bed_roughness=self.bed_roughness_state.generic)
             self.do_nudging = C.do_bed_roughness_nudging
             self.nudging_events = 0
+            self.gia_events = 0
 
             # thermodynamics: one step per dt_thermodynamics, caught up
             # after every ice step of run_to (the reference fuses it into
@@ -272,6 +271,8 @@ class ModelRegion:
             t0 = self.time
             self.t_next = {"climate": t0, "ocean": t0, "SMB": t0, "BMB": t0,
                            "LMB": t0,
+                           "GIA": (t0 + C.dt_GIA)
+                           if C.choice_GIA_model != "none" else _BIG,
                            "bed_roughness": (t0 + C.bed_roughness_nudging_dt)
                            if self.do_nudging else _BIG,
                            "output": t0, "output_restart": t0,
@@ -279,7 +280,7 @@ class ModelRegion:
                            else _BIG}
             self.dt_comp = {"climate": C.dt_climate, "ocean": C.dt_ocean,
                             "SMB": C.dt_SMB, "BMB": C.dt_BMB,
-                            "LMB": C.dt_LMB,
+                            "LMB": C.dt_LMB, "GIA": C.dt_GIA,
                             "bed_roughness": C.bed_roughness_nudging_dt,
                             "output": C.dt_output,
                             "output_restart": C.dt_output_restart,
@@ -317,7 +318,8 @@ class ModelRegion:
         construction and again after every mesh update, so that nothing
         keeps a pointer into a replaced mesh's tensors."""
         C = self.C
-        self.run_climate = make_run_climate(C, self.md, self.name)
+        self.run_climate = make_run_climate(C, self.md, self.name,
+                                            mesh=self.mesh)
         self.run_ocean = make_run_ocean(C, self.md, self.name,
                                         mesh=self.mesh)
         self.run_smb = make_run_smb(C, self.md, self.name)
@@ -326,6 +328,7 @@ class ModelRegion:
             target_geometry=self._bmb_target_geometry)
         self.run_lmb = make_run_lmb(C, self.md, self.name)
         self.run_amb = make_run_amb(C, self.md, self.name)
+        self.run_gia = make_run_gia(C, self.md, self.name, self.mesh)
         self._bedrock_cdfs = _build_bedrock_cdfs(C, self.mesh, self.name,
                                                  self.md)
         Hi_PD, Hb_PD = self.refgeo_PD
@@ -345,7 +348,11 @@ class ModelRegion:
 
     def _refresh_forcing(self):
         """The component models' fields at the region's time (after a
-        resume or a mesh update)."""
+        resume or a mesh update). The stateful runners (IMAU-ITM's firn,
+        the matrix climate's albedo) advance a year in this call: the JAX
+        package refreshes here on purpose, in place of the reference's
+        reset of every t_next (ufemism2_tpu/main/region.py:1318-1327, and
+        :498-501 on a resume), and the port does the same."""
         t = self.time
         self.climate = self.run_climate(t, self.state)
         self._T_surf = self.climate["T2m"].mean(dim=1)
@@ -808,7 +815,7 @@ class ModelRegion:
             self.t_next[name] = self.t_next[name] + self.dt_comp[name]
 
         # the JAX package's order: climate, ocean, SMB, masks, BMB, LMB,
-        # then the bed-roughness nudging
+        # GIA, then the bed-roughness nudging
         if need("climate"):
             self.climate = self.run_climate(t, s)
             self._T_surf = self.climate["T2m"].mean(dim=1)
@@ -827,6 +834,13 @@ class ModelRegion:
         if need("LMB"):
             self.LMB = self.run_lmb(t, s, masks)
             bump("LMB")
+        if need("GIA"):
+            # the bed moves by the change of its deformation
+            _, dHb = self.run_gia(t, s, self.dt_comp["GIA"])
+            self.state = self.state.replace(
+                dHb=dHb, Hb=self.state.Hb + (dHb - self.state.dHb))
+            self.gia_events += 1
+            bump("GIA")
         if need("bed_roughness"):
             if (self.C.bed_roughness_nudging_t_start <= t
                     <= self.C.bed_roughness_nudging_t_end):
@@ -941,18 +955,23 @@ class ModelRegion:
 
         # rebuild what holds the mesh, and refresh the forcing on it (the
         # reference resets every component t_next to now instead,
-        # UFEMISM_main_model.f90:1326-1335). A stateful ocean (nudge2D)
-        # takes its state over through the trilinear map; the inverted
-        # BMB starts again at zero, as the JAX package's does; the nudged
-        # roughness moved with the ice state
-        old_ocean = self.run_ocean
+        # UFEMISM_main_model.f90:1326-1335). The stateful runners (the
+        # matrix climate's albedo, IMAU-ITM's firn, the nudge2D ocean's
+        # offset) take their state over through the trilinear map; the
+        # inverted BMB starts again at zero, as the JAX package's does;
+        # the nudged roughness and the bed deformation dHb moved with the
+        # ice state
+        old_runners = (self.run_climate, self.run_ocean, self.run_smb)
         self._build_on_mesh()
-        if (hasattr(self.run_ocean, "carry_state_from")
-                and type(self.run_ocean) is type(old_ocean)):
-            kw = dict(dtype=self.md.A.dtype, device=self.device)
-            self.run_ocean.carry_state_from(
-                old_ocean, lambda a: torch.as_tensor(
-                    M_tri_a @ a.double().cpu().numpy(), **kw))
+        kw = dict(dtype=self.md.A.dtype, device=self.device)
+
+        def remap_tri(a):
+            return torch.as_tensor(M_tri_a @ a.double().cpu().numpy(), **kw)
+        for new_r, old_r in zip((self.run_climate, self.run_ocean,
+                                 self.run_smb), old_runners):
+            if (hasattr(new_r, "carry_state_from")
+                    and type(new_r) is type(old_r)):
+                new_r.carry_state_from(old_r, remap_tri)
         self.bed_roughness_state = BedRoughnessState(
             generic=self.state.bed_roughness)
         self._refresh_forcing()

@@ -145,23 +145,40 @@ class PointCriterion:
 
 
 def points_in_polygon(pts: np.ndarray, poly: np.ndarray) -> np.ndarray:
-    """Point-in-polygon test by ray casting, vectorised over points and
-    polygon edges (chunked over points to bound memory)."""
+    """Point-in-polygon test by ray casting (a point is inside where a ray
+    towards +x crosses an odd number of edges). Each edge is tested only
+    against the points whose y lies in its band [min(y0, y1), max(y0, y1)),
+    found by a search in the points sorted by y; the crossing test is
+    the edge loop's, operation for operation."""
     x0, y0 = poly[:, 0], poly[:, 1]
     x1, y1 = np.roll(x0, -1), np.roll(y0, -1)
     dy = y1 - y0
     ok = dy != 0.0
     x0, y0, x1, y1, dy = x0[ok], y0[ok], x1[ok], y1[ok], dy[ok]
     slope = (x1 - x0) / dy
-    inside = np.zeros(len(pts), dtype=bool)
-    chunk = max(1, int(2e7 / max(len(x0), 1)))
-    for p0 in range(0, len(pts), chunk):
-        x = pts[p0:p0 + chunk, 0][:, None]
-        y = pts[p0:p0 + chunk, 1][:, None]
-        cond = ((y0 <= y) & (y < y1)) | ((y1 <= y) & (y < y0))
-        xi = x0 + (y - y0) * slope
-        inside[p0:p0 + chunk] = (cond & (x < xi)).sum(axis=1) % 2 == 1
-    return inside
+    order = np.argsort(pts[:, 1], kind="stable")
+    ys = pts[order, 1]
+    lo = np.searchsorted(ys, np.minimum(y0, y1), side="left")
+    hi = np.searchsorted(ys, np.maximum(y0, y1), side="left")
+    n_in = hi - lo
+    crossings = np.zeros(len(pts), dtype=np.int64)
+    # (edge, point) pairs in chunks of edges, to bound memory
+    ends = np.cumsum(n_in)
+    e0 = 0
+    while e0 < len(n_in):
+        e1 = int(np.searchsorted(ends, ends[e0] - n_in[e0] + 2e7,
+                                 side="right"))
+        e1 = max(e1, e0 + 1)
+        cnt = n_in[e0:e1]
+        e = np.repeat(np.arange(e0, e1), cnt)
+        start = np.cumsum(cnt) - cnt
+        k = np.arange(int(cnt.sum())) - np.repeat(start, cnt) \
+            + np.repeat(lo[e0:e1], cnt)
+        p = order[k]
+        xi = x0[e] + (pts[p, 1] - y0[e]) * slope[e]
+        crossings += np.bincount(p[pts[p, 0] < xi], minlength=len(pts))
+        e0 = e1
+    return crossings % 2 == 1
 
 
 def dist_to_polyline(pts: np.ndarray, line: np.ndarray) -> np.ndarray:

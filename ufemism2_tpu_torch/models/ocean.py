@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .bmb import ocean_freezing_point_at_draft
+from ..utils.interp import frame_weights
 
 
 def ocean_depth_axis(C):
@@ -160,11 +161,7 @@ def make_run_ocean(C, md, region_name: str, mesh=None):
         dS_d = torch.as_tensor(dS, **kw)
 
         def run(time, s):
-            t = torch.clamp(torch.as_tensor([time], **kw), tt_d[0],
-                            tt_d[-1])
-            i = int(torch.clamp(torch.searchsorted(tt_d, t) - 1, 0,
-                                len(tt) - 2))
-            w = (t - tt_d[i]) / (tt_d[i + 1] - tt_d[i])
+            i, w = frame_weights(time, tt_d)
             Tf = T0f + (1 - w) * dT_d[i] + w * dT_d[i + 1]
             Sf = S0f + (1 - w) * dS_d[i] + w * dS_d[i + 1]
             return draft_properties(Tf, Sf, s)

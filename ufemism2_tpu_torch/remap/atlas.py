@@ -33,7 +33,13 @@ class Atlas:
         after about 20 remeshes of a MISMIP_mod run). A weakref
         finaliser purges a dead object's entries, bounding memory like
         the reference's clear_all_maps_involving_this_mesh
-        (apply_maps.f90)."""
+        (apply_maps.f90). A Grid is keyed by its axes instead, so that
+        the input files on one x/y grid share one map onto a mesh; its
+        maps go when their mesh dies."""
+        from ..mesh.grids import Grid
+        if isinstance(obj, Grid):
+            return ("grid", obj.x.tobytes(), obj.y.tobytes(), obj.dx,
+                    obj.dy)
         uid = getattr(obj, "_atlas_uid", None)
         if uid is None:
             uid = next(Atlas._uid_counter)
