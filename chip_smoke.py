@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile STEPS] [--profile-out FILE]
+        [--antarctica-only | --laddie-only] [--ant-init-years Y]
 
 Needs one CUDA device and nvcc; exits non-zero without them. Phases, each
 of which ends the run with a non-zero exit if it fails:
@@ -180,10 +181,54 @@ of which ends the run with a non-zero exit if it fails:
               insolation frame each orbit of the matrix climate reads and
               how far apart their absorbed insolation is.
 
-With --antarctica-only the script builds the kernels and runs 26-28 alone
+29. antarctica_hydro - resumed from 26's restart with the Salle2025
+              hydrology (a leg every model year), the particle tracers and
+              the Pine Island and Thwaites regions of interest with their
+              scalar files, ANT_HYDRO_YEARS in f32: the legs' sub-steps and
+              wall, the live particles, the per-ROI volume; pinned by
+              ANT_HYDRO_PINS.
+30. mismipplus_iceocean1r - the state of 14 resumed with the LADDIE melt
+              under the ISOMIP+ WARM ocean (MP_ICEOCEAN1R, the MISOMIP
+              iceocean1r stand-in) after the retreat leg's start-up,
+              IO_YEARS model years in f32, one run_to a year: the counts
+              (pinned by IO_*), the grounding line on the westeast
+              transect, the integrated melt and the shelf's mean and max
+              melt, every LADDIE leg (wall, pseudo-steps, laddie_stage
+              launches, the plume's max |dH|, whether a remesh re-ran the
+              initial leg).
+31. laddie_kernel - laddie_stage (csrc/laddie.cu, one LADDIE stage in two
+              launches) against its plain version on the card, to the bit,
+              on the operands of 30's last stage (its compact shelf mesh)
+              and of the 2 km standalone set-up, in f32 and f64: fbrk3's
+              first and third stage with the default and a non-zero beta,
+              euler, lfra, Jenkins1991 gamma with the ice temperature, the
+              idealised subglacial discharge; each with its eager and
+              device (graph replay) ms, the plain version's ms and the bound
+              (bytes at 3.35 TB/s); then one fbrk3 step and a 100-step leg
+              (and 20-step legs of fbrk3 with beta, euler and lfra) against
+              the plain ones, with the ms a pseudo-step of each.
+32. laddie_standalone - python -m ufemism2_tpu_torch laddie <cfg> on the
+              card in a process of its own (tests/test_laddie.py's
+              configuration at 2 km, the schema's dt_laddie and 30-day
+              leg): nV, the shelf, the leg's wall and ms a pseudo-step, the
+              mean melt; both output files read back, finite.
+33. small_iceocean - MP_SMALL with the LADDIE melt and the idealised
+              subglacial discharge (SMALL_IO), f64, through program.main on
+              the card against a CPU process: equal counts, small's gaps,
+              the melt within 1e-10.
+34. small_hydro - the coarse Antarctica of 28 with Zoet-Iverson sliding on
+              the Salle2025 effective pressure, the particles and the two
+              regions of interest, f64, card against CPU through a forced
+              remesh: equal counts and sub-steps, the till water and the
+              effective pressure within 1e-10, the same live particles,
+              the per-ROI scalars.
+
+With --antarctica-only the script builds the kernels and runs 26-29 alone
 (no result line); --ant-init-years Y makes 26's window Y model years (not
-ANT_INIT_YEARS; the pins are then not held), run in windows of
-ANT_WINDOW_YEARS either way, each printed.
+ANT_INIT_YEARS; the pins of 26, 27 and 29 are then not held), run in
+windows of ANT_WINDOW_YEARS either way, each printed. With --laddie-only
+it builds the kernels and runs 30-34 alone (no result line). Every result
+line carries `at_s`, the script's elapsed seconds.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -420,6 +465,28 @@ MP_ICE1R = dict(MP_RESUME, choice_BMB_model_ANT="idealised",
 # iterations over the IR_YEARS, fixed by the first run of the phase on an
 # NVIDIA H100 80GB HBM3
 IR_STEPS, IR_VISC_ITS, IR_AXB_ITS = 44, 168, 30140
+# MISOMIP iceocean1r (Asay-Davis et al. 2016, the coupled retreat leg after
+# the spin-up; the JAX package's harness, ufemism2_tpu/validation/
+# integrated_tests.py:640-720): MP_RESUME's state and physics with the
+# LADDIE melt under the ISOMIP+ WARM ocean, an ocean and a BMB event every
+# model year, the westeast transect. A stand-in, as MP_ICE1R is (the
+# reference's config_06_5km_iceocean1r.cfg is not in the repository); the
+# schema's LADDIE settings (dt_laddie 360 s, a 30-day initial and 6-day
+# later legs, fbrk3 with its default beta); IO_YEARS model years (the
+# reference runs 100)
+IO_YEARS = 5
+MP_ICEOCEAN1R = dict(MP_RESUME, choice_BMB_model_ANT="laddie",
+                     choice_ocean_model_ANT="idealised",
+                     choice_ocean_model_idealised="ISOMIP",
+                     choice_ocean_isomip_scenario="WARM",
+                     dt_ocean=1.0, dt_BMB=1.0,
+                     transects_ANT="westeast,dx=1e3",
+                     end_time_of_run=MP_RESUME["start_time_of_run"]
+                     + IO_YEARS)
+# its f32 trajectory on the card: ice steps, viscosity and Krylov
+# iterations over the IO_YEARS, fixed by the first run of the phase on an
+# NVIDIA H100 80GB HBM3
+IO_STEPS, IO_VISC_ITS, IO_AXB_ITS = 49, 224, 42251
 # the quadratic local melt of Favier et al. (2019) under the ISOMIP+ WARM
 # far-field profile (MISOMIP1: MISMIP+ ice under ISOMIP+ forcing), the
 # schema's gamma, an ocean and a BMB event every model year; one model year
@@ -476,8 +543,14 @@ SMALL_EXP2 = dict(EXP2, tpu_precision="f64",
 SMALL_EXP2_LEGS = (2.0, 1.0, 2.0)
 
 
+_T0 = time.perf_counter()
+
+
 def say(phase, **kv):
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    """One result line; `at_s` is the script's elapsed time."""
+    print(json.dumps({"phase": phase, **kv,
+                      "at_s": round(time.perf_counter() - _T0, 1)}),
+          flush=True)
 
 
 def time_ms(fn, reps, warm=50):
@@ -1398,7 +1471,9 @@ def counted_gmres(module=None):
 
 
 def zero_counts():
-    from ufemism2_tpu_torch.ops import cuda_bpa, cuda_heat, cuda_spmv
+    from ufemism2_tpu_torch.ops import (cuda_bpa, cuda_heat, cuda_laddie,
+                                        cuda_spmv)
+    cuda_laddie.launches = 0
     cuda_spmv.launches = 0
     cuda_spmv.diva_launches = 0
     cuda_heat.launches = 0
@@ -1407,8 +1482,10 @@ def zero_counts():
 
 
 def read_counts():
-    from ufemism2_tpu_torch.ops import cuda_bpa, cuda_heat, cuda_spmv
-    return dict(stack_spmv_launches=cuda_spmv.launches,
+    from ufemism2_tpu_torch.ops import (cuda_bpa, cuda_heat, cuda_laddie,
+                                        cuda_spmv)
+    return dict(laddie_stage_launches=cuda_laddie.launches,
+                stack_spmv_launches=cuda_spmv.launches,
                 diva_apply_launches=cuda_spmv.diva_launches,
                 heat_columns_launches=cuda_heat.launches,
                 bpa_apply_launches=cuda_bpa.launches,
@@ -2334,12 +2411,14 @@ def ant_init_cfg(files, res=40e3, **over):
         start_time_of_run=0.0, end_time_of_run=100.0), **over)
 
 
-ANT_INIT_YEARS = 6.0
+# 2 model years (6 before the LADDIE slice, whose phases took the time;
+# --ant-init-years 12 still runs into the hard regime past year 4)
+ANT_INIT_YEARS = 2.0
 ANT_WINDOW_YEARS = 2.0
 ANT_STEPS_AFTER = 3
 # the f32 trajectory of antarctica_init on the card: (steps, n_visc_its,
 # n_Axb_its) at the window's end and after the steps on the new mesh
-ANT_INIT_PINS = (63, 709, 96618)
+ANT_INIT_PINS = (23, 88, 12328)
 
 
 # The second leg, from antarctica_init's restart: the rest of the climate
@@ -2369,7 +2448,7 @@ def ant_itm_cfg(files, t0, **over):
 
 
 ANT_ITM_YEARS = (1.0, 1.0)
-ANT_ITM_PINS = (83, 905, 124112)
+ANT_ITM_PINS = (43, 368, 49245)
 
 
 @contextlib.contextmanager
@@ -2500,7 +2579,7 @@ def antarctica_init_phase(files, workdir, years=ANT_INIT_YEARS):
         "gmres_calls", "gmres_unconverged", "thermo_steps", "wall_s",
         "diva_apply_launches", "stack_spmv_launches",
         "heat_columns_launches", "bpa_apply_launches",
-        "line_thomas_launches")}
+        "line_thomas_launches", "laddie_stage_launches")}
     window.update(
         ms_per_krylov_it=window["wall_s"] * 1e3 / window["n_Axb_its"],
         sim_yr_per_hr=window["window_yr"] / window["wall_s"] * 3600.0,
@@ -3555,13 +3634,697 @@ def antarctica_phases(workdir, years=ANT_INIT_YEARS):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    return ant_init, ant_itm, (init_cases, itm_cases)
+    ant_hydro = antarctica_hydro_phase(files, restart, workdir,
+                                       check_pins=years == ANT_INIT_YEARS)
+    return ant_init, ant_itm, (init_cases, itm_cases), (ant_hydro, small)
 
 
 def ant_launches(ant_init, ant_itm, key):
     """launches_by_path entries of the two Antarctica phases."""
     return {"antarctica_init": ant_init["launches"][key],
             "antarctica_itm": ant_itm["launches"][key]}
+
+
+# -- the LADDIE slice: the plume and its kernel, Salle2025 hydrology, the
+# tracers and the regions of interest ----------------------------------------
+
+LADDIE_REPS = 100       # eager and graph-replay timings of a stage
+LADDIE_PLAIN_REPS = 5   # the plain stage: some 300 eager launches a call
+LADDIE_LEG_STEPS = 100  # the leg held kernel against plain
+ROIS = "Pine_Island_Glacier,Thwaites_Glacier"
+
+
+@contextlib.contextmanager
+def record_laddie_stage():
+    """Within the block, the dict it yields holds under "args" the operands
+    of the last laddie_stage call (the steps made within it call the
+    recorder: make_laddie_step takes the module's function when it is
+    made)."""
+    from ufemism2_tpu_torch.ops import cuda_laddie
+    last, inner = {}, cuda_laddie.laddie_stage
+
+    def recorded(*a):
+        last["args"] = a
+        return inner(*a)
+    cuda_laddie.laddie_stage = recorded
+    try:
+        yield last
+    finally:
+        cuda_laddie.laddie_stage = inner
+
+
+def laddie_retype(tab, lm, fc, states, dtype):
+    """A stage's operands in another floating type (the tables, the forcing
+    and the states cast; the masks and index tables as they are)."""
+    import dataclasses
+    from ufemism2_tpu_torch.ops.cuda_laddie import _Ell
+    cast = lambda t: t.to(dtype) if torch.is_floating_point(t) else t
+    kw = {}
+    for f in dataclasses.fields(tab):
+        v = getattr(tab, f.name)
+        if isinstance(v, _Ell):
+            v = _Ell(v.cols, v.idx, v.vals.to(dtype))
+        elif isinstance(v, torch.Tensor):
+            v = cast(v)
+        elif f.name in ("desc",):
+            v = None
+        elif f.name == "consts":
+            v = {}
+        kw[f.name] = v
+    fc2 = {k: cast(v) if isinstance(v, torch.Tensor) else v
+           for k, v in fc.items()}
+    return (type(tab)(**kw), lm, fc2,
+            [type(s)(*(cast(t).contiguous() for t in s)) for s in states])
+
+
+def laddie_bytes(tab, fc, post, visc):
+    """The bytes one stage must move: every table, mask, forcing field and
+    state read once, every output written once."""
+    nV, nTri = tab.nV, tab.nTri
+    size = tab.LcA.element_size()
+    Kc = tab.C.shape[1]
+    nE = tab.EV.shape[0]
+    nd = fc["z_ocean"].shape[0]
+    ell = sum(M.cols.numel() * (4 + size) for M in (
+        tab.M_map_b_a, tab.M_map_a_b, tab.M_ddx_a_b, tab.M_ddy_a_b))
+    tables = (2 * nV * Kc * 4 + 3 * nV * Kc * size + nTri * 3 * 4 * 3
+              + nE * 2 * 4 * 2 + nTri * 3 * size * 4 + 2 * nTri * size + ell)
+    masks = 3 * nV + 3 * nTri
+    forcing = 3 * nV * size + 2 * nTri * size + nd * size \
+        + 2 * nV * nd * size
+    states = 2 * (3 * nV + 2 * nTri) * size + nV * size
+    kind = None if post is None else post[0]
+    outs = (4 + 10) * nV * size + 2 * nTri * size \
+        + (nV * size if kind in ("blend", "blend3") else 0) \
+        + ((3 * nV + 2 * nTri) * size if kind == "lfra" else 0)
+    return tables + masks + forcing + states + outs
+
+
+def laddie_equal(a, b):
+    """(bit-equal, max |a - b|) of two tensors (NaN where both are NaN
+    counts as equal)."""
+    same = (a == b) | (a.isnan() & b.isnan())
+    d = (a.double() - b.double()).abs()
+    d = torch.where(same, 0.0, d)
+    return bool(same.all()), float(d.max()) if d.numel() else 0.0
+
+
+def laddie_case(name, tab, P, old, ref, lm, fc, dt_i, visc, post):
+    """laddie_stage against laddie_stage_plain on the same operands on the
+    card: every output compared to the bit; the eager and the graph-replay
+    (device) time of a stage, the plain version's and the bound."""
+    from ufemism2_tpu_torch.ops import cuda_laddie as cl
+    args = (tab, P, old, ref, lm, fc, dt_i, visc, post)
+    k_state, k_filt, k_ph = cl.laddie_stage(*args)
+    p_state, p_filt, p_ph = cl.laddie_stage_plain(*args)
+    torch.cuda.synchronize()
+    pairs = list(zip(k_state, p_state)) + [(k_ph[n], p_ph[n])
+                                           for n in cl.PH_FIELDS]
+    if k_filt is not None:
+        pairs += list(zip(k_filt, p_filt))
+    eq = [laddie_equal(a, b) for a, b in pairs]
+    bit_equal = all(e for e, _ in eq)
+    max_err = max(m for _, m in eq)
+    ms = time_ms(lambda: cl.laddie_stage(*args), LADDIE_REPS, warm=10)
+    device_ms = graph_ms(lambda: cl.laddie_stage(*args), LADDIE_REPS)
+    plain_ms = time_ms(lambda: cl.laddie_stage_plain(*args),
+                       LADDIE_PLAIN_REPS, warm=1)
+    nbytes = laddie_bytes(tab, fc, post, visc)
+    out = dict(case=name, nV=tab.nV, nTri=tab.nTri,
+               dtype=str(ref.H.dtype)[6:], launches_a_stage=2,
+               bit_equal=bit_equal, max_abs_err=max_err, ms=ms,
+               device_ms=device_ms, plain_ms=plain_ms, bytes=nbytes,
+               bound_ms=nbytes / 3.35e12 * 1e3, bound_by="bytes",
+               library_ms=None)
+    say("laddie_case", **out)
+    return out
+
+
+def laddie_step_check(name, C, md, state, lm, fc, n_steps):
+    """One step and an n_steps leg of make_laddie_step with the kernel
+    against the same with the plain stage, on the card: bit-equal states
+    and melt; the ms a pseudo-step of each."""
+    from ufemism2_tpu_torch.models.laddie import make_laddie_step
+    from ufemism2_tpu_torch.ops import cuda_laddie as cl
+    sk = make_laddie_step(C, md)
+    sp = make_laddie_step(C, md, stage_fn=cl.laddie_stage_plain)
+    res = {}
+    for tag, step in (("kernel", sk), ("plain", sp)):
+        carry, ph = step((state, state), lm, fc)
+        one = (carry, ph["melt"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry = (state, state)
+        for _ in range(n_steps):
+            carry, ph = step(carry, lm, fc)
+        torch.cuda.synchronize()
+        res[tag] = (one, carry, ph["melt"],
+                    (time.perf_counter() - t0) * 1e3 / n_steps)
+    (k1, km1), kc, km, k_ms = res["kernel"]
+    (p1, pm1), pc, pm, p_ms = res["plain"]
+    eq = [laddie_equal(a, b) for a, b in
+          list(zip(k1[0], p1[0])) + list(zip(k1[1], p1[1])) + [(km1, pm1)]
+          + list(zip(kc[0], pc[0])) + list(zip(kc[1], pc[1])) + [(km, pm)]]
+    out = dict(case=name, steps=n_steps, bit_equal=all(e for e, _ in eq),
+               max_abs_err=max(m for _, m in eq), ms_a_step=k_ms,
+               plain_ms_a_step=p_ms, speedup=p_ms / k_ms)
+    say("laddie_step", **out)
+    return out
+
+
+def laddie_kernel_cases(rec, md_io, C_io, standalone):
+    """The laddie_kernel phase: laddie_stage against its plain version on
+    the operands of the iceocean1r path's last stage (its compact shelf
+    mesh, f32) and of the 2 km standalone set-up (f64), in f32 and f64,
+    for fbrk3's first and third stage with the default and a non-zero
+    beta, euler, lfra, Jenkins1991 gamma with the ice temperature, and the
+    idealised subglacial discharge; then one fbrk3 step and a 100-step leg
+    against the plain ones on both meshes."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.ops.cuda_laddie import LaddieState
+    tab0, P0, old0, ref0, lm0, fc0 = rec["args"][:6]
+    dt = C_io.dt_laddie
+    cases = []
+
+    def variants(tag, tab, lm, fc, ref, md_y):
+        # a state away from the leg's: U, V and T perturbed, and an old
+        # level of its own for lfra
+        g = torch.Generator(device="cpu").manual_seed(3)
+        noise = lambda t, s: t + s * torch.randn(
+            t.shape, generator=g, dtype=torch.float64).to(t)
+        ref = LaddieState(H=noise(ref.H, 0.5).abs() + 2.0,
+                          U=noise(ref.U, 0.02), V=noise(ref.V, 0.02),
+                          T=noise(ref.T, 0.05), S=noise(ref.S, 0.02))
+        old = LaddieState(*(noise(t, 0.01) for t in ref))
+        Pu = dataclasses_replace(P0, jenkins=False)
+        Pj = dataclasses_replace(P0, jenkins=True)
+        # the idealised discharge: 72 m^3/s over the shelf vertices of the
+        # 5 km band on the channel's axis
+        band = lm.a & (md_y.abs() < 2500.0)
+        sgd = torch.where(band, 72.0 / max(int(band.sum()), 1)
+                          / 1e6, 0.0).to(fc["Hib"])
+        fc_ti = dict(fc, use_Ti=True,
+                     Ti_base=torch.full_like(fc["Hib"], -18.0))
+        fc_sgd = dict(fc_ti, SGD=sgd)
+        b = (0.5, 0.5, 0.344)
+        for name, P, o, f, dti, visc, post in (
+                ("fbrk3_s1", Pu, ref, fc, dt / 3, False,
+                 ("blend", (0.0, 1.0), ref.H)),
+                ("fbrk3_s3", Pu, old, fc, dt, True,
+                 ("blend3", (0.0, 1.0, 0.0), ref.H)),
+                ("fbrk3_beta_s1", Pu, ref, fc, dt / 3, False,
+                 ("blend", (b[0], 1 - b[0]), ref.H)),
+                ("fbrk3_beta_s3", Pu, old, fc, dt, True,
+                 ("blend3", (b[2], 1 - 2 * b[2], b[2]), ref.H)),
+                ("euler", Pu, ref, fc, dt, True, None),
+                ("lfra", Pu, old, fc, dt, True, ("lfra", 0.1)),
+                ("jenkins_Ti", Pj, ref, fc_ti, dt, True, None),
+                ("jenkins_Ti_sgd", Pj, ref, fc_sgd, dt, True, None)):
+            cases.append(laddie_case(f"{tag}_{name}", tab, P, o, ref, lm,
+                                     f, dti, visc, post))
+
+    for dtype in (torch.float32, torch.float64):
+        tab, lm, fc, (ref,) = laddie_retype(tab0, lm0, fc0, [ref0], dtype)
+        y = md_io.V[:, 1].to(dtype)
+        variants(f"iceocean1r_{str(dtype)[6:]}", tab, lm, fc, ref, y)
+    C_sa, md_sa, lm_sa, fc_sa, st_sa, step_sa = standalone
+    tab_sa = step_sa.tables
+    for dtype in (torch.float64, torch.float32):
+        tab, lm, fc, (ref,) = laddie_retype(tab_sa, lm_sa, fc_sa, [st_sa],
+                                            dtype)
+        variants(f"standalone2km_{str(dtype)[6:]}", tab, lm, fc, ref,
+                 md_sa.V[:, 1].to(dtype))
+    steps = [laddie_step_check("iceocean1r_f32_fbrk3", C_io, md_io,
+                               LaddieState(*ref0), lm0, fc0,
+                               LADDIE_LEG_STEPS),
+             laddie_step_check("standalone2km_f64_fbrk3", C_sa, md_sa, st_sa,
+                               lm_sa, fc_sa, LADDIE_LEG_STEPS)]
+    beta = dict(laddie_fbrk3_beta1=0.5, laddie_fbrk3_beta2=0.5,
+                laddie_fbrk3_beta3=0.344)
+    for scheme, over in (("fbrk3_beta", dict(beta)),
+                         ("euler", dict(choice_laddie_integration_scheme=
+                                        "euler")),
+                         ("lfra", dict(choice_laddie_integration_scheme=
+                                       "lfra"))):
+        Cx = Config(**dict(LADDIE_STANDALONE, **over))
+        steps.append(laddie_step_check(f"standalone2km_f64_{scheme}", Cx,
+                                       md_sa, st_sa, lm_sa, fc_sa, 20))
+    bad = [c["case"] for c in cases + steps if not c["bit_equal"]]
+    say("laddie_kernel", cases=len(cases), legs=len(steps),
+        not_bit_equal=bad)
+    assert not bad, f"laddie_stage differs from its plain version: {bad}"
+    return cases, steps
+
+
+def dataclasses_replace(obj, **kw):
+    import dataclasses
+    return dataclasses.replace(obj, **kw)
+
+
+# tests/test_laddie.py's standalone configuration at 2 km, with the
+# schema's dt_laddie (360 s) and 30-day initial leg, one output leg
+LADDIE_STANDALONE = dict(
+    choice_refgeo_init_ANT="idealised", choice_refgeo_PD_ANT="idealised",
+    choice_refgeo_PD_idealised="MISMIPplus",
+    choice_refgeo_init_idealised="MISMIPplus",
+    refgeo_idealised_MISMIPplus_Hi_init=100.0,
+    xmin_ANT=0.0, xmax_ANT=800e3, ymin_ANT=-40e3, ymax_ANT=40e3,
+    maximum_resolution_uniform=2e3, nit_Lloyds_algorithm=1,
+    choice_ocean_model_ANT="idealised",
+    choice_ocean_model_idealised="MISMIPplus_WARM")
+
+
+def standalone_operands():
+    """The 2 km standalone set-up in this process (for the kernel cases):
+    (C, md, LADDIE masks, forcing, initial plume state, step)."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.main.laddie_program import standalone_setup
+    C = Config(**LADDIE_STANDALONE)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        mesh, md, _, lm, fc, step, st = standalone_setup(C, "ANT", "cuda")
+    say("laddie_standalone_setup", nV=md.nV, nTri=md.nTri,
+        shelf=int(lm.a.sum()), seconds=time.perf_counter() - t0)
+    return C, md, lm, fc, st, step
+
+
+def laddie_standalone_phase(workdir):
+    """python -m ufemism2_tpu_torch laddie <cfg> on the card, in a process
+    of its own: its wall, the shelf, ms a pseudo-step, the mean melt; both
+    output files exist and their fields are finite."""
+    from ufemism2_tpu_torch.io.ncio import NCFile
+    from ufemism2_tpu_torch.main.laddie_program import (MESH_FIELDS,
+                                                        SCALAR_FIELDS)
+    cfg = write_namelist(os.path.join(workdir, "laddie_2km.cfg"),
+                         LADDIE_STANDALONE)
+    out_dir = os.path.join(workdir, "laddie_2km")
+    code = ("import json, sys, time; t0 = time.perf_counter(); "
+            "from ufemism2_tpu_torch.main import program; "
+            "from ufemism2_tpu_torch.main.laddie_program import "
+            "run_laddie_standalone as r; "
+            "from ufemism2_tpu_torch.ops import cuda_laddie; "
+            "program.main(['laddie', sys.argv[1], '--output-dir', "
+            "sys.argv[2]]); "
+            "print('LADDIE_RESULT ' + json.dumps(dict(r.last, "
+            "launches=cuda_laddie.launches, "
+            "process_s=time.perf_counter() - t0)), flush=True)")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code, cfg, out_dir],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
+    assert proc.returncode == 0, "the standalone LADDIE run failed"
+    line = [l for l in proc.stdout.splitlines()
+            if l.startswith("LADDIE_RESULT ")][-1]
+    res = json.loads(line.split(" ", 1)[1])
+    files = {}
+    for name, fields in (("laddie_output_fields_mesh.nc", MESH_FIELDS),
+                         ("laddie_scalar_output.nc", SCALAR_FIELDS)):
+        path = os.path.join(out_dir, name)
+        with NCFile(path) as nc:
+            frames = len(nc.read("time"))
+            finite = all(np.isfinite(nc.read(f)).all() for f in fields)
+        files[name] = dict(frames=frames, finite=finite)
+    out = dict(nV=res["nV"], nTri=res["nTri"], shelf=res["shelf"],
+               steps=res["steps"], leg_wall_s=res["wall_s"],
+               ms_a_step=res["wall_s"] * 1e3 / res["steps"],
+               mean_melt_m_yr=res["mean_melt"],
+               laddie_stage_launches=res["launches"],
+               process_s=res["process_s"], subprocess_wall_s=wall,
+               files=files)
+    say("laddie_standalone", **out)
+    assert res["shelf"] > 0 and res["mean_melt"] > 0.0
+    assert res["launches"] >= 3 * res["steps"] - 3
+    assert all(f["frames"] >= 1 and f["finite"] for f in files.values())
+    return out
+
+
+def iceocean1r_phase(workdir):
+    """MP_RESTART resumed under MP_ICEOCEAN1R on the card in f32 (the
+    retreat leg's start-up, then IO_YEARS model years, one run_to a year):
+    the counts, the yearly grounding line on the westeast transect, the
+    integrated melt and the mean and max melt on the shelf, every LADDIE
+    leg (wall, pseudo-steps, laddie_stage launches, max |dH| of the plume,
+    whether it was an initial leg), the launches of every kernel counted
+    around the years. Returns (numbers, the recorded last stage, region)."""
+    from ufemism2_tpu_torch.config import Config
+    C = Config(**dict(MP_ICEOCEAN1R, tpu_precision="f32"))
+    t_start = MP_ICEOCEAN1R["start_time_of_run"]
+    out_dir = os.path.join(workdir, "iceocean1r_f32")
+    with record_laddie_stage() as rec:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            r = resume_region(C, MP_RESTART, "cuda", out_dir)
+        resume_s = time.perf_counter() - t0
+        ice1r_start(r)
+        n0 = r.n_dt_ice
+        legs0 = len(r.run_bmb.legs)
+        x_GL, melt, shelf = [x_GL_westeast(r)], [melt_m3_per_yr(r)], []
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            for y in range(1, IO_YEARS + 1):
+                r.run_to(t_start + y)
+                x_GL.append(x_GL_westeast(r))
+                melt.append(melt_m3_per_yr(r))
+                fl = r._masks_fracs(r.state.Hi, r.state.Hb, r.state.SL)[0][
+                    "mask_floating_ice"]
+                m = -r.BMB[fl].double()
+                shelf.append(dict(mean=float(m.mean()), max=float(m.max()),
+                                  n=int(fl.sum())))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+    s = r.state
+    legs = r.run_bmb.legs
+    f32 = dict(
+        steps=r.n_dt_ice - n0, n_visc_its=s.n_visc_its,
+        n_Axb_its=s.n_Axb_its, wall_s=run_s, resume_s=resume_s,
+        sim_yr_per_hr=IO_YEARS / run_s * 3600.0,
+        x_GL_km=[x / 1e3 for x in x_GL], melt_m3_per_yr=melt,
+        shelf_melt_m_yr=shelf,
+        laddie_legs=[dict(l, ms_a_step=l["wall_s"] * 1e3 / l["steps"])
+                     for l in legs],
+        legs_in_window=len(legs) - legs0,
+        initial_legs=sum(l["initial"] for l in legs),
+        n_mesh_updates=r.n_mesh_updates,
+        remesh_reran_initial_leg=(r.n_mesh_updates > 0 and sum(
+            l["initial"] for l in legs[legs0:]) > 0),
+        plume_dH_max=[l["dH_max"] for l in legs],
+        ice_volume_m3=float((s.Hi.double() * r.md.A.double()).sum()),
+        nV=r.mesh.nV, compact_nV=legs[-1]["nV"], compact_nTri=legs[-1]["nTri"],
+        **counts)
+    check_state(s, "cuda")
+    say("mismipplus_iceocean1r", restart=os.path.relpath(MP_RESTART),
+        years=IO_YEARS, f32=f32)
+    assert f32["steps"] >= IO_YEARS and f32["ice_volume_m3"] > 0.0
+    assert counts["laddie_stage_launches"] > 0 \
+        and counts["diva_apply_launches"] > 0, \
+        "the iceocean1r path did not go through the kernels"
+    assert counts["laddie_stage_launches"] == sum(
+        l["stage_launches"] for l in legs[legs0:])
+    assert all(np.isfinite(x) for x in x_GL) and melt[-1] < 0.0
+    got = (f32["steps"], f32["n_visc_its"], f32["n_Axb_its"])
+    assert got == (IO_STEPS, IO_VISC_ITS, IO_AXB_ITS), \
+        f"the f32 iceocean1r trajectory moved: {got}"
+    return f32, rec, r
+
+
+# MP_SMALL with the LADDIE melt under the ISOMIP+ WARM ocean and the
+# idealised discharge on the channel's axis, in f64; a BMB event every
+# coupling interval, the legs cut to 1 and 0.5 days (the CPU's plain stage
+# would take minutes over the schema's 30 and 6)
+SMALL_IO = dict(MP_SMALL, choice_BMB_model_ANT="laddie",
+                choice_ocean_model_ANT="idealised",
+                choice_ocean_model_idealised="ISOMIP",
+                choice_ocean_isomip_scenario="WARM",
+                choice_laddie_SGD="idealised",
+                choice_laddie_SGD_idealised="MISMIPplus_PC",
+                start_time_of_applying_SGD=-1e9, dt_ocean=0.1, dt_BMB=0.1,
+                time_duration_laddie_init=1.0, time_duration_laddie=0.5,
+                tpu_precision="f64")
+
+
+def small_iceocean_run(workdir, dev):
+    """SMALL_IO through program.main on `dev`: the region."""
+    from ufemism2_tpu_torch.main import program
+    cfg = write_namelist(os.path.join(workdir, f"small_iceocean_{dev}.cfg"),
+                         SMALL_IO)
+    with contextlib.redirect_stdout(sys.stderr):
+        return program.main([cfg, "--output-dir", os.path.join(
+            workdir, f"small_iceocean_{dev}"), "--device", dev])["ANT"]
+
+
+def cpu_small_iceocean(workdir, out):
+    """The CPU's SMALL_IO run (start_cpu_job, one thread: the compact
+    shelf mesh's tensors are small), its numbers saved to `out`."""
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    r = small_iceocean_run(workdir, "cpu")
+    s = r.state
+    torch.save(dict(steps=r.n_dt_ice, n_visc_its=s.n_visc_its,
+                    n_Axb_its=s.n_Axb_its, legs=len(r.run_bmb.legs),
+                    Hi=s.Hi, u_vav_b=s.u_vav_b, v_vav_b=s.v_vav_b,
+                    BMB=r.BMB, seconds=time.perf_counter() - t0), out)
+
+
+def small_iceocean_phase(workdir, cpu_job):
+    """SMALL_IO through program.main on the card, held to the same run on
+    the CPU (cpu_job, from start_cpu_job: cpu_small_iceocean): the same
+    steps and counts, small's gaps, the melt within 1e-10."""
+    from ufemism2_tpu_torch.ops import cuda_laddie
+    n0 = cuda_laddie.launches
+    t0 = time.perf_counter()
+    rg = small_iceocean_run(workdir, "cuda")
+    t_card = time.perf_counter() - t0
+    launches = cuda_laddie.launches - n0
+    proc, out = cpu_job
+    rc, cpu_wait_s = finish_cpu_job(proc, out, "small_iceocean")
+    sg = rg.state
+    gaps = {n: float((rc[n] - getattr(sg, n).cpu()).abs().max()
+                     / rc[n].abs().max())
+            for n in ("Hi", "u_vav_b", "v_vav_b")}
+    bmb_gap = float((rc["BMB"] - rg.BMB.cpu()).abs().max()
+                    / rc["BMB"].abs().max())
+    out = dict(nV=rg.mesh.nV, steps=[rc["steps"], rg.n_dt_ice],
+               n_visc_its=[rc["n_visc_its"], sg.n_visc_its],
+               n_Axb_its=[rc["n_Axb_its"], sg.n_Axb_its], rel_gap=gaps,
+               melt_rel_gap=bmb_gap, max_melt=float(-rg.BMB.min()),
+               legs=[rc["legs"], len(rg.run_bmb.legs)],
+               laddie_stage_launches_card=launches,
+               seconds_cpu=rc["seconds"], seconds_card=t_card,
+               cpu_wait_s=cpu_wait_s)
+    say("small_iceocean", **out)
+    assert launches > 0, "the card's run did not go through laddie_stage"
+    assert rc["steps"] == rg.n_dt_ice >= 3
+    assert rc["n_visc_its"] == sg.n_visc_its
+    assert abs(rc["n_Axb_its"] - sg.n_Axb_its) <= 0.02 * rc["n_Axb_its"]
+    assert gaps["Hi"] < 1e-6 and gaps["u_vav_b"] < 1e-5 \
+        and gaps["v_vav_b"] < 1e-5, gaps
+    assert bmb_gap <= 1e-10 and out["max_melt"] > 0.0, bmb_gap
+    return out
+
+
+def small_hydro_cfg(files):
+    """The coarse Antarctica of small_climate (the writer's 80 km data,
+    600 km on grounded ice), f64, with Zoet-Iverson sliding on the
+    Salle2025 effective pressure, the particles and the two regions of
+    interest; every event every 0.2 years, the legs to 0.02 years."""
+    return dict(
+        choice_refgeo_init_ANT="read_from_file",
+        choice_refgeo_PD_ANT="read_from_file",
+        filename_refgeo_init_ANT=str(files["topo"]),
+        filename_refgeo_PD_ANT=str(files["topo"]),
+        xmin_ANT=-3040e3, xmax_ANT=3040e3, ymin_ANT=-3040e3, ymax_ANT=3040e3,
+        choice_SMB_model_ANT="uniform", uniform_SMB=0.3,
+        choice_BMB_model_ANT="uniform", uniform_BMB=0.0,
+        choice_sliding_law="Zoet-Iverson",
+        choice_basal_hydrology_model="Salle2025", dt_basal_hydro=0.2,
+        basal_hydro_equil_time=0.02,
+        choice_tracer_tracking_model="particles",
+        tractrackpart_dt_coupling=0.2, choice_regions_of_interest=ROIS,
+        choice_thermo_model="none", allow_mesh_updates=True,
+        maximum_resolution_uniform=800e3,
+        maximum_resolution_grounded_ice=600e3,
+        maximum_resolution_floating_ice=1200e3,
+        maximum_resolution_grounding_line=600e3, grounding_line_width=600e3,
+        maximum_resolution_calving_front=1200e3,
+        calving_front_width=1200e3,
+        maximum_resolution_ice_front=1200e3, ice_front_width=1200e3,
+        ROI_maximum_resolution_uniform=400e3,
+        ROI_maximum_resolution_grounding_line=600e3,
+        ROI_maximum_resolution_calving_front=1200e3,
+        nit_Lloyds_algorithm=2, tpu_precision="f64", visc_it_nit=3,
+        pc_nit_max=2, dt_output=0.2, start_time_of_run=0.0,
+        end_time_of_run=1.0)
+
+
+def small_hydro_phase(files, workdir):
+    """small_hydro_cfg on the card and on the CPU, through a forced remesh:
+    equal counts, the same sub-steps in every hydrology leg, N_til and
+    W_til within 1e-10, the same live particles, the per-ROI scalars."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.main.region import ModelRegion
+    C = Config(**small_hydro_cfg(files))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            r = ModelRegion(C, "ANT", device=dev,
+                            output_dir=os.path.join(workdir, f"hydro_{dev}"))
+            r.run_to(0.2)
+            r.run_to(0.4)
+            r.update_mesh()
+            r.run_to(0.6)
+        runs[dev] = (r, time.perf_counter() - t0)
+    (rc, tc), (rg, tg) = runs["cpu"], runs["cuda"]
+    rel = lambda a, b: float((a.double().cpu() - b.double().cpu()).abs()
+                             .max() / max(float(a.abs().max()), 1e-300))
+    gaps = dict(Hi=rel(rc.state.Hi, rg.state.Hi),
+                u_vav_b=rel(rc.state.u_vav_b, rg.state.u_vav_b),
+                W_til=rel(rc.hydro_state.W_til, rg.hydro_state.W_til),
+                N_til=rel(rc.md.x("hydro_N_eff"), rg.md.x("hydro_N_eff")),
+                x=rel(rc.tracer_state.x, rg.tracer_state.x))
+    roi = {k: [h[-1]["ice_volume"] for h in (rc.roi_history[k],
+                                              rg.roi_history[k])]
+           for k in rc.roi_history}
+    roi_gap = max(abs(a - b) / max(abs(a), 1e-300) for a, b in roi.values())
+    alive = [int(r.tracer_state.alive.sum()) for r in (rc, rg)]
+    same_alive = bool((rc.tracer_state.alive
+                       == rg.tracer_state.alive.cpu()).all())
+    out = dict(nV=[rc.mesh.nV, rg.mesh.nV], steps=[rc.n_dt_ice, rg.n_dt_ice],
+               n_visc_its=[rc.state.n_visc_its, rg.state.n_visc_its],
+               n_Axb_its=[rc.state.n_Axb_its, rg.state.n_Axb_its],
+               hydro_substeps=[rc.hydro_substeps, rg.hydro_substeps],
+               rel_gap=gaps, alive=alive, same_alive=same_alive,
+               roi_volume=roi, roi_rel_gap=roi_gap,
+               seconds_cpu=tc, seconds_card=tg)
+    say("small_hydro", **out)
+    assert rc.n_dt_ice == rg.n_dt_ice and rc.n_mesh_updates == 1
+    assert rc.state.n_visc_its == rg.state.n_visc_its
+    assert abs(rc.state.n_Axb_its - rg.state.n_Axb_its) \
+        <= 0.02 * rc.state.n_Axb_its
+    assert rc.hydro_substeps == rg.hydro_substeps
+    assert gaps["W_til"] <= 1e-10 and gaps["N_til"] <= 1e-10, gaps
+    assert same_alive and alive[0] > 0 and gaps["x"] <= 1e-10, gaps
+    assert roi_gap <= 1e-10 and all(v[0] > 0 for v in roi.values()), roi
+    return out
+
+
+ANT_HYDRO_YEARS = 1.0
+# the f32 trajectory of antarctica_hydro on the card (steps, n_visc_its,
+# n_Axb_its), fixed by the first run of the phase on an NVIDIA H100 80GB
+# HBM3
+ANT_HYDRO_PINS = (8, 225, 37228)
+
+
+def antarctica_hydro_phase(files, restart, workdir, check_pins=True):
+    """Resumed from antarctica_init's restart with the Salle2025 hydrology
+    (a leg every model year), the particles (an event every model year)
+    and the two regions' scalar files, ANT_HYDRO_YEARS in f32 at full
+    width: the hydrology legs' sub-steps and wall, the live particles, the
+    per-ROI volume, the counts pinned by ANT_HYDRO_PINS."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.io.output_files import mesh_from_restart
+    from ufemism2_tpu_torch.io.ncio import NCFile
+    from ufemism2_tpu_torch.main.region import ModelRegion
+    with NCFile(restart) as nc:
+        t0_run = float(np.asarray(nc.read("time")).reshape(-1)[-1])
+    C = Config(**ant_init_cfg(
+        files, choice_basal_hydrology_model="Salle2025", dt_basal_hydro=1.0,
+        choice_tracer_tracking_model="particles",
+        tractrackpart_dt_coupling=1.0, choice_regions_of_interest=ROIS,
+        dt_output=0.5, start_time_of_run=t0_run,
+        end_time_of_run=t0_run + 100.0))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        region = ModelRegion(C, "ANT", mesh=mesh_from_restart(restart, C),
+                             output_dir=os.path.join(workdir, "ant_hydro"))
+        region.resume_from_restart(restart)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    hydro_s = []
+    inner = region._run_hydrology
+
+    def timed(s, masks):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        inner(s, masks)
+        torch.cuda.synchronize()
+        hydro_s.append(time.perf_counter() - t)
+    region._run_hydrology = timed
+    n0 = region.n_dt_ice
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        region.run_to(t0_run + ANT_HYDRO_YEARS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    s = region.state
+    out = dict(nV=region.mesh.nV, steps=region.n_dt_ice - n0,
+               n_visc_its=s.n_visc_its, n_Axb_its=s.n_Axb_its,
+               resume_s=resume_s, wall_s=run_s,
+               hydro_substeps=region.hydro_substeps, hydro_leg_s=hydro_s,
+               N_til_mean=float(region.md.x("hydro_N_eff").double().mean()),
+               W_til_max=float(region.hydro_state.W_til.max()),
+               alive_particles=int(region.tracer_state.alive.sum()),
+               roi_volume={k: [h["ice_volume"] for h in v]
+                           for k, v in region.roi_history.items()},
+               **counts)
+    say("antarctica_hydro", **out)
+    check_state(s, "cuda")
+    assert len(region.hydro_substeps) >= 1 and out["alive_particles"] > 0
+    assert all(v and v[-1] > 0.0 for v in out["roi_volume"].values())
+    assert counts["diva_apply_launches"] > 0
+    if check_pins:
+        got = (out["steps"], out["n_visc_its"], out["n_Axb_its"])
+        assert got == ANT_HYDRO_PINS, \
+            f"the f32 antarctica_hydro trajectory moved: {got}"
+    return out
+
+
+def laddie_phases(workdir, ant_files=None):
+    """The slice's card phases: mismipplus_iceocean1r, laddie_kernel,
+    laddie_standalone, small_iceocean and small_hydro (the latter on the
+    writer's 80 km data in ant_files' directory, written here if None).
+    Returns (numbers by phase, the laddie_stage kernels entry's parts)."""
+    cpu_out = os.path.join(workdir, "small_iceocean_cpu.pt")
+    cpu_job = (start_cpu_job("cpu_small_iceocean", workdir, cpu_out),
+               cpu_out)
+    try:
+        return _laddie_phases(workdir, ant_files, cpu_job)
+    finally:
+        if cpu_job[0].poll() is None:
+            cpu_job[0].kill()
+            cpu_job[0].wait()
+
+
+def _laddie_phases(workdir, ant_files, cpu_job):
+    io, rec, r_io = iceocean1r_phase(workdir)
+    md_io = r_io.run_bmb.state["md_c"]
+    C_io = r_io.C
+    sa = standalone_operands()
+    cases, steps = laddie_kernel_cases(rec, md_io, C_io, sa)
+    del r_io
+    sa_run = laddie_standalone_phase(workdir)
+    small_io = small_iceocean_phase(workdir, cpu_job)
+    if ant_files is None:
+        from ufemism2_tpu_torch.tools.antarctica_synthetic import write_all
+        ant_files = write_all(os.path.join(workdir, "ant80h"),
+                              SMALL_CLIMATE_DX)
+    hydro = small_hydro_phase(ant_files, workdir)
+    return dict(iceocean1r=io, standalone=sa_run, small_iceocean=small_io,
+                small_hydro=hydro), (cases, steps)
+
+
+def laddie_kernel_entry(nums, cases, steps, ant_hydro=None):
+    """The laddie_stage entry of the kernels line: the hot case is the
+    iceocean1r path's own f32 fbrk3 third stage."""
+    hot = next(c for c in cases if c["case"] == "iceocean1r_float32_fbrk3_s3")
+    return {
+        "name": "laddie_stage", "route": "cuda",
+        "source": "ufemism2_tpu_torch/csrc/laddie.cu",
+        "replaces": "ufemism2_tpu/models/laddie.py:373",
+        "replaces_kind": "XLA-lowered code (make_laddie_step stage, run "
+                         "as one jitted lax.fori_loop), no pallas_call",
+        "launches": nums["iceocean1r"]["laddie_stage_launches"],
+        "launches_by_path": {
+            "mismipplus_iceocean1r":
+                nums["iceocean1r"]["laddie_stage_launches"],
+            "laddie_standalone":
+                nums["standalone"]["laddie_stage_launches"],
+            "small_iceocean":
+                nums["small_iceocean"]["laddie_stage_launches_card"]},
+        "launches_unit": "stages (two kernel launches each)",
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": hot["ms"], "device_ms": hot["device_ms"],
+        "plain_ms": hot["plain_ms"], "bound_ms": hot["bound_ms"],
+        "bound_by": hot["bound_by"], "library_ms": None,
+        "timed_case": hot["case"], "cases": cases, "steps": steps}
 
 
 def main():
@@ -3573,6 +4336,9 @@ def main():
     ap.add_argument("--antarctica-only", action="store_true",
                     help="build the kernels and run the Antarctica phases "
                          "alone (no result line)")
+    ap.add_argument("--laddie-only", action="store_true",
+                    help="build the kernels and run the LADDIE slice's "
+                         "phases 29-33 alone (no result line)")
     ap.add_argument("--ant-init-years", type=float, default=ANT_INIT_YEARS,
                     metavar="Y", help="antarctica_init's window in model "
                     "years (pins held only at the default)")
@@ -3584,7 +4350,7 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     from ufemism2_tpu_torch.ops import cuda_spmv     # sets TF32 off
-    from ufemism2_tpu_torch.ops import cuda_heat, cuda_bpa
+    from ufemism2_tpu_torch.ops import cuda_heat, cuda_bpa, cuda_laddie
     from ufemism2_tpu_torch.ops._build import SOURCES, build_kernel
     from ufemism2_tpu_torch.config import Config
     from ufemism2_tpu_torch.mesh import build_mesh_from_config
@@ -3609,12 +4375,20 @@ def main():
     cuda_spmv.load_kernels()
     cuda_heat.load_kernels()
     cuda_bpa.load_kernels()
+    cuda_laddie.load_kernels()
     say("build", seconds=time.perf_counter() - t0,
         sources={f"ufemism2_tpu_torch/csrc/{n}.cu": s
                  for n, s in built.items()})
     if args.antarctica_only:
         with tempfile.TemporaryDirectory() as workdir:
             antarctica_phases(workdir, args.ant_init_years)
+        say("done", seconds=time.perf_counter() - t_start)
+        return 0
+    if args.laddie_only:
+        with tempfile.TemporaryDirectory() as workdir:
+            nums, (cases, steps) = laddie_phases(workdir)
+            say("laddie_kernel_entry", **laddie_kernel_entry(nums, cases,
+                                                             steps))
         say("done", seconds=time.perf_counter() - t_start)
         return 0
 
@@ -3776,9 +4550,13 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         ih_nums, ih_kernels = bpa_slice_finish(ih, workdir)
     # -- 26-28. the realistic Antarctica stand-in, the climate chain ------
+    # -- 29-33. the LADDIE slice: MISOMIP iceocean1r, the laddie_stage
+    # cases, the standalone plume, small_iceocean and small_hydro; and
+    # antarctica_hydro (in antarctica_phases, from 26's restart)
     with tempfile.TemporaryDirectory() as workdir:
-        ant_init, ant_itm, (init_cases, itm_cases) = antarctica_phases(
-            workdir, args.ant_init_years)
+        ant_init, ant_itm, (init_cases, itm_cases), (ant_hydro, small) = \
+            antarctica_phases(workdir, args.ant_init_years)
+        lad_nums, (lad_cases, lad_steps) = laddie_phases(workdir, small)
     diva_cases += [init_cases["diva"], itm_cases["diva"]]
     cases.append(init_cases["stack"])
     heat_cases += [init_cases["heat"], itm_cases["heat"]]
@@ -3863,6 +4641,13 @@ def main():
         ih_nums["ismip_hom_a_bpa"]["stack_spmv_launches"]
     kernels[1]["launches_by_path"]["ismip_hom_a_diva"] = \
         ih_nums["ismip_hom_a_diva"]["diva_apply_launches"]
+    for i, key in ((0, "stack_spmv_launches"), (1, "diva_apply_launches"),
+                   (2, "heat_columns_launches")):
+        by_path = kernels[i]["launches_by_path"]
+        if i < 2:
+            by_path["mismipplus_iceocean1r"] = lad_nums["iceocean1r"][key]
+        by_path["antarctica_hydro"] = ant_hydro[key]
+    kernels.append(laddie_kernel_entry(lad_nums, lad_cases, lad_steps))
     print(json.dumps({"kernels": kernels + ih_kernels}), flush=True)
     print(card_line, flush=True)
     say("done", seconds=time.perf_counter() - t_start)

@@ -350,8 +350,8 @@ def test_inverted(env, window):
 
 
 def test_refused_bmb_choices(env):
-    _, Ct = mismipplus_configs(choice_BMB_model_ANT="laddie")
-    with pytest.raises(NotImplementedError, match="A.17"):
+    _, Ct = mismipplus_configs(choice_BMB_model_ANT="laddie_py")
+    with pytest.raises(NotImplementedError, match="laddie_py"):
         tbmb.make_run_bmb(Ct, env.mdt, "ANT")
     _, Ct = mismipplus_configs(choice_BMB_model_ANT="parameterised",
                                choice_BMB_model_parameterised="Holland")

@@ -129,8 +129,9 @@ def test_mask_from_file_matches_jax(small_mesh, tmp_path, layout):
 
 def test_roi_mask_raises_by_name(small_mesh):
     mesh_t = mesh_from_numpy(mesh_to_numpy(small_mesh))
-    C = CT(choice_hybrid_DIVA_BPA_mask_ANT="ROI")
-    with pytest.raises(NotImplementedError, match="A.15"):
+    C = CT(choice_hybrid_DIVA_BPA_mask_ANT="ROI",
+           choice_regions_of_interest="Atlantis")
+    with pytest.raises(ValueError, match="Atlantis"):
         thy.resolve_hybrid_mask(C, mesh_t, "ANT")
     with pytest.raises(ValueError, match="choice_hybrid_DIVA_BPA_mask_ANT"):
         thy.resolve_hybrid_mask(CT(choice_hybrid_DIVA_BPA_mask_ANT="x"),

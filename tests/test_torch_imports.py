@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: no file of `ufemism2_tpu_torch/`, nor
-`chip_smoke.py`, imports jax, chex or anything of the JAX package; and
+`chip_smoke.py`, imports jax, chex or anything of the JAX package, nor
+matplotlib or contourpy, which the card's machine lacks (the port tests
+points in polygons itself, mesh/refinement.py points_in_polygon); and
 h5py, which the card's machine lacks, is imported only by the reader of
 NetCDF4 (HDF5) files, `io/ncio.py NCFile._read_hdf5`, when it opens one.
 
@@ -12,7 +14,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "chex", "ufemism2_tpu", "jaxlib", "flax", "optax")
+FORBIDDEN = ("jax", "chex", "ufemism2_tpu", "jaxlib", "flax", "optax",
+             "matplotlib", "contourpy")
 FILES = sorted((ROOT / "ufemism2_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
@@ -30,7 +33,7 @@ def _imported_roots(path):
 
 def test_port_has_files():
     assert len(FILES) > 30
-    for name in ("stack_spmv.cu", "heat_columns.cu"):
+    for name in ("stack_spmv.cu", "heat_columns.cu", "bpa.cu", "laddie.cu"):
         assert (ROOT / "ufemism2_tpu_torch" / "csrc" / name).exists()
 
 

@@ -119,13 +119,18 @@ def test_output_files_as_jax(runs):
 def test_default_device_and_other_commands(runs, tmp_path):
     """The card unless --device says otherwise: without one the run
     raises before it writes anything; the subcommands that are not ported
-    say which part of the roadmap they wait for."""
+    say which part of the roadmap they wait for, and 'laddie' needs its
+    config."""
     _, cfg, _, _ = runs
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tprog.main([str(cfg), "--output-dir", str(tmp_path / "x")])
         assert not (tmp_path / "x").exists()
     for cmd, word in (("component_tests", "A.20"),
-                      ("integrated_tests", "A.20"), ("laddie", "A.17")):
+                      ("integrated_tests", "A.20")):
         with pytest.raises(NotImplementedError, match=word):
             tprog.main([cmd])
+    # the standalone plume is ported; without its config it is a usage
+    # error
+    with pytest.raises(SystemExit):
+        tprog.main(["laddie"])

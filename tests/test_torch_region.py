@@ -124,15 +124,15 @@ def test_default_device_is_the_card(env):
 
 
 @pytest.mark.parametrize("over, word", [
-    (dict(choice_basal_hydrology_model="Salle2025"), "Salle2025"),
-    (dict(choice_tracer_tracking_model="particles"),
+    (dict(choice_GIA_model="Lingle"), "choice_GIA_model"),
+    (dict(choice_sealevel_model="SELEN"), "choice_sealevel_model"),
+    (dict(choice_tracer_tracking_model="ages"),
      "choice_tracer_tracking_model"),
-    (dict(choice_BMB_model_ANT="laddie"), "A.17"),
-    (dict(choice_SMB_model_ANT="reconstructed"), "choice_SMB_model"),
+    (dict(pc_choice_initialise_ANT="analytical"), "pc_choice_initialise"),
     (dict(choice_BMB_model_ANT="laddie_py"), "choice_BMB_model"),
     (dict(choice_GIA_model="SELEN"), "choice_GIA_model"),
-    (dict(choice_regions_of_interest="PineIsland"),
-     "choice_regions_of_interest"),
+    (dict(choice_initial_velocity_ANT="read_from_file"),
+     "choice_initial_velocity"),
     (dict(tpu_n_devices=4), "tpu_n_devices"),
 ])
 def test_unported_choices_raise_by_name(env, over, word):

@@ -214,6 +214,8 @@ def test_smb_snapshot_plus_anomalies(env):
 
 
 def test_reconstructed_refused(env):
+    """The reconstructed SMB is the Patagonia ROI's: refused without it
+    (tests/test_torch_roi.py holds it to the JAX package's)."""
     _, Ct = configs(choice_SMB_model_ANT="reconstructed")
-    with pytest.raises(NotImplementedError, match="ROI"):
+    with pytest.raises(ValueError, match="Patagonia"):
         tsmb.make_run_smb(Ct, env.mdt, "ANT")

@@ -307,8 +307,9 @@ def test_ssa_solve_and_no_sliding(env, cold):
 
 @pytest.mark.parametrize("over, exc, word", [
     (dict(choice_stress_balance_approximation="hybrid DIVA/BPA",
-          choice_hybrid_DIVA_BPA_mask_ANT="ROI"),
-     NotImplementedError, "ROI"),
+          choice_hybrid_DIVA_BPA_mask_ANT="ROI",
+          choice_regions_of_interest="Atlantis"),
+     ValueError, "Atlantis"),
     (dict(tpu_stress_balance_precond="ilu"), ValueError,
      "tpu_stress_balance_precond"),
     (dict(choice_stress_balance_approximation="hybrid DIVA/BPA",
@@ -320,8 +321,8 @@ def test_unported_choices_raise_by_name(env, over, exc, word):
     """What is not ported raises NotImplementedError, what does not exist
     ValueError, each naming the choice (the preconditioners, the
     ocean-pressure front, BPA and the hybrid DIVA/BPA are ported now:
-    test_ported_choices_build; the hybrid's 'ROI' mask waits for the
-    regions of interest, ROADMAP A.15)."""
+    test_ported_choices_build; the hybrid's 'ROI' mask too, and an unknown
+    region of interest raises by its name)."""
     _, Ct = configs(**over)
     mdt = tmd.build_mesh_data(env.mesh_t, dtype=torch.float64, device="cpu")
     with pytest.raises(exc, match=word):

@@ -96,8 +96,9 @@ def test_uniform_rheology_thermodynamics_leaves_the_ice_alone(env):
 
 
 def test_thermo_config_refusals(env):
+    # the reconstructed SMB is the Patagonia ROI's: refused without it
     _, Ct = configs(**THERMO, choice_SMB_model_ANT="reconstructed")
-    with pytest.raises(NotImplementedError, match="choice_SMB_model"):
+    with pytest.raises(ValueError, match="Patagonia"):
         ModelRegion(Ct, "ANT", mesh=env.mesh_t, device="cpu")
     # (a geothermal flux read from a file is ported:
     # tests/test_torch_thermo.py test_geothermal_flux)

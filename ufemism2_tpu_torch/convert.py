@@ -134,3 +134,29 @@ def component_state_from_numpy(region, fields: dict, device, dtype):
                                  "region's runner")
             setattr(runner, name, _tensor(v, device, dtype))
     return region
+
+
+def laddie_state_from_numpy(fields: dict, device, dtype):
+    """A LADDIE plume state (models/laddie.py LaddieState) from a dict
+    keyed H, U, V, T, S."""
+    from .models.laddie import LaddieState
+    device = resolve_device(device)
+    return LaddieState(*(_tensor(fields[k], device, dtype)
+                         for k in LaddieState._fields))
+
+
+def salle2025_state_from_numpy(fields: dict, device, dtype):
+    """A Salle2025 hydrology state from a dict keyed W, W_til, P."""
+    from .core.ice.hydrology_salle2025 import Salle2025State
+    device = resolve_device(device)
+    return Salle2025State(**{k: _tensor(fields[k], device, dtype)
+                             for k in ("W", "W_til", "P")})
+
+
+def particle_state_from_numpy(fields: dict, device, dtype):
+    """A tracer particle state (models/tracers.py ParticleState) from a
+    dict keyed x, y, zeta, t_origin, alive (booleans)."""
+    from .models.tracers import ParticleState
+    device = resolve_device(device)
+    return ParticleState(*(_tensor(fields[k], device, dtype)
+                           for k in ParticleState._fields))

@@ -25,8 +25,8 @@ friction (beta with the sub-grid friction of the grounding line), then
 the transition and identity rows in tensor code.
 
 Solver masks (calc_hybrid_solver_masks_basic, :392-437): 'read_from_file'
-(a mask_BPA field on an x/y grid) or 'ROI' (BPA inside the regions of
-interest; not ported yet, ROADMAP A.15); the transition masks are each
+(a mask_BPA field on an x/y grid) or 'ROI' (BPA on the triangles whose
+circumcentre lies inside a region of interest); the transition masks are each
 sub-domain's stencil halo (calc_hybrid_solver_masks_transition,
 :1215-1299), three triangle rings dilated on the host.
 """
@@ -58,7 +58,7 @@ def resolve_hybrid_mask(C, mesh, region_name: str) -> np.ndarray:
     """mask_BPA_b [nTri] from choice_hybrid_DIVA_BPA_mask_<region>: a
     'read_from_file' mask_BPA field ([y, x] or [x, y]) taken at each
     triangle's circumcentre from the grid cell that np.searchsorted finds
-    (the reference's lookup)."""
+    (the reference's lookup), or 'ROI'."""
     key = f"choice_hybrid_DIVA_BPA_mask_{region_name}"
     choice = getattr(C, key)
     if choice == "read_from_file":
@@ -75,9 +75,16 @@ def resolve_hybrid_mask(C, mesh, region_name: str) -> np.ndarray:
         yi = np.clip(np.searchsorted(y, cc[:, 1]), 0, len(y) - 1)
         return m[xi, yi] > 0.5
     if choice == "ROI":
-        raise NotImplementedError(
-            f"{key} 'ROI' is not ported yet: it needs the regions of "
-            "interest of mesh/roi_polygons.py (ROADMAP A.15)")
+        # the triangles whose circumcentre lies in one of the regions of
+        # interest
+        from ...mesh.refinement import points_in_polygon
+        from ...mesh.roi_polygons import calc_roi_polygon
+        mask = np.zeros(mesh.nTri, bool)
+        for roi in (r for r in C.choice_regions_of_interest.split(",")
+                    if r):
+            mask |= points_in_polygon(mesh.Tricc,
+                                      calc_roi_polygon(roi.strip()))
+        return mask
     raise ValueError(f"unknown {key} '{choice}'")
 
 

@@ -79,9 +79,16 @@ def calc_basal_friction_coefficient(C, md: MeshData, bed_roughness,
         return torch.clamp(_idealised_sliding(C, md, uabs),
                            max=C.slid_beta_max).to(uabs.dtype)
 
-    _, _, N_eff = run_basal_hydrology(
-        C, Hi_eff, Hb, SL,
-        mask_grounded_ice=masks.get("mask_grounded_ice"))
+    if C.choice_basal_hydrology_model == "Salle2025" \
+            and md.extras and "hydro_N_eff" in md.extras:
+        # the transient till model: the effective pressure of the
+        # Salle2025 leg at its own cadence (basal_hydrology_new.f90),
+        # registered in md.extras by the region
+        N_eff = torch.clamp(md.x("hydro_N_eff").to(Hi_eff.dtype), min=0.0)
+    else:
+        _, _, N_eff = run_basal_hydrology(
+            C, Hi_eff, Hb, SL,
+            mask_grounded_ice=masks.get("mask_grounded_ice"))
 
     if choice == "Weertman":
         rough = apply_grounded_fractions_to_bed_roughness(

@@ -2,10 +2,13 @@
 
 Re-design of src/UFEMISM/main/UFEMISM_program.f90: run up to four model
 regions (NAM/EAS/GRL/ANT) through the coupling loop, with the MISMIP+
-flow-factor tuning between coupling intervals, or the port's unit tests.
+flow-factor tuning between coupling intervals, the standalone LADDIE
+plume (main/laddie_program.py), or the port's unit tests.
 
 Usage:
     python -m ufemism2_tpu_torch <config.cfg> [--output-dir DIR] [--device cpu]
+    python -m ufemism2_tpu_torch laddie <config.cfg> [--output-dir DIR]
+        [--device cpu]
     python -m ufemism2_tpu_torch unit_tests
 
 The run writes a copy of the config, run_manifest.json and
@@ -229,9 +232,10 @@ def mismipplus_adapt_flow_factor(C, region):
 def main(argv=None):
     p = argparse.ArgumentParser(prog="ufemism2_tpu_torch",
                                 description=__doc__.split("\n\n")[0])
-    p.add_argument("config", help="path to a .cfg namelist, or 'unit_tests' "
-                   "(component_tests, integrated_tests and laddie are not "
-                   "ported yet)")
+    p.add_argument("config", help="path to a .cfg namelist, 'laddie' (the "
+                   "standalone plume; its config follows) or 'unit_tests' "
+                   "(component_tests and integrated_tests are not ported "
+                   "yet)")
     p.add_argument("laddie_config", nargs="?", default=None,
                    help="config path when the first argument is 'laddie'")
     p.add_argument("--output-dir", default=None)
@@ -251,6 +255,9 @@ def main(argv=None):
             f"'{args.config}': the validation harness is not ported yet "
             "(ROADMAP A.20)")
     if args.config == "laddie":
-        raise NotImplementedError(
-            "'laddie': standalone LADDIE is not ported yet (ROADMAP A.17)")
+        if not args.laddie_config:
+            p.error("'laddie' needs the path of a config")
+        from .laddie_program import run_laddie_standalone
+        return run_laddie_standalone(args.laddie_config, args.output_dir,
+                                     device=args.device)
     return run_model(args.config, args.output_dir, device=args.device)

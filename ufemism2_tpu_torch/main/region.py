@@ -18,11 +18,13 @@ reference's make_pc_multistep does), a fixed or prescribed sea level, the
 MISMIP+ flow-factor tuning slot, the output (the scalars in
 `scalars_history` and, with an output directory, the NetCDF mesh, grid,
 scalar, transect, ISMIP and restart files of io/ and models/transects.py),
-restarts and the checksum log. What is still missing raises
-NotImplementedError at construction, naming the choice and its ROADMAP
-item: the reconstructed SMB and the ROI polygons it needs, and tracers
-(A.15), Salle2025 hydrology and the LADDIE melt (A.17), and more than one
-device (A.19).
+restarts and the checksum log, the LADDIE sub-shelf melt
+(models/laddie.py), the Salle2025 transient hydrology, the Lagrangian
+tracers and the regions of interest (their mesh refinement, the
+reconstructed SMB, the hybrid's ROI mask and a scalar file each). What is
+still missing raises NotImplementedError at construction, naming the
+choice and its ROADMAP item: more than one device (A.19), and the GIA,
+sea-level and initialisation choices `_check_slice` lists.
 """
 
 from __future__ import annotations
@@ -73,6 +75,13 @@ from ..models.ocean import make_run_ocean
 from ..models.bed_roughness import (BedRoughnessState, initial_bed_roughness,
                                     make_run_bed_roughness_nudging)
 from ..models.transects import Transect, TransectOutputFile
+from ..models.tracers import PointLocator, make_tracer_stepper
+from ..core.ice.hydrology_salle2025 import (init_salle2025_state,
+                                            run_salle2025_leg,
+                                            Salle2025State)
+from ..mesh.refinement import points_in_polygon
+from ..mesh.roi_polygons import calc_roi_polygon
+from ..utils.constants import ice_density, grav
 from ..core.ice.geometry import (ice_surface_elevation,
                                  thickness_above_flotation)
 from ..utils.checksum import ChecksumLogger
@@ -91,35 +100,16 @@ def _require(C, key, allowed, what=None):
             + f"; ported: {', '.join(repr(a) for a in allowed)}")
 
 
-def _refuse(C, key, missing, what):
-    v = getattr(C, key)
-    if v in missing:
-        raise NotImplementedError(f"{key} = {v!r} is not ported yet ({what})")
-
-
 def _check_slice(C, name):
     """Refuse, by name, every configuration choice the port still lacks."""
     _require(C, "choice_thermo_model", ("none", "3D_heat_equation"))
-    _refuse(C, f"choice_SMB_model_{name}", ("reconstructed",),
-            "it needs the ROI polygons, ROADMAP A.15")
-    _refuse(C, f"choice_BMB_model_{name}", ("laddie",),
-            "LADDIE, ROADMAP A.17")
     _require(C, "choice_GIA_model", ("none", "ELRA"))
     _require(C, "choice_sealevel_model", ("fixed", "prescribed"))
-    _require(C, "choice_tracer_tracking_model", ("none",),
-             "tracers, ROADMAP A.15")
+    _require(C, "choice_tracer_tracking_model", ("none", "particles"))
     _require(C, f"pc_choice_initialise_{name}", ("zero", "read_from_file"))
     _require(C, f"choice_initial_velocity_{name}", ("zero",))
     _require(C, "tpu_n_devices", (1,), "multi-device runs, ROADMAP A.19")
     _require(C, "tpu_precision", ("f32", "f64"))
-    if C.choice_basal_hydrology_model == "Salle2025":
-        raise NotImplementedError(
-            "choice_basal_hydrology_model 'Salle2025' is not ported yet "
-            "(ROADMAP A.17)")
-    if C.choice_regions_of_interest.strip():
-        raise NotImplementedError(
-            "choice_regions_of_interest: the ROI polygons and their scalar "
-            "files are not ported yet (ROADMAP A.15)")
 
 
 @dataclass
@@ -250,6 +240,16 @@ class ModelRegion:
                         getattr(C, "uniform_initial_ice_temperature_"
                                 + self.name)))
 
+            # Salle2025 transient hydrology: its state and the effective
+            # pressure slot the sliding laws read, registered before the
+            # initial solve (the JAX package registers it after, so that
+            # there a sliding law that reads N_eff cannot start; ROADMAP C)
+            if C.choice_basal_hydrology_model == "Salle2025":
+                self.hydro_state = init_salle2025_state(self.md)
+                self.md.extras["hydro_N_eff"] = EField(
+                    ice_density * grav * self.state.Hi, "V")
+                self.hydro_substeps = []
+
             # initial stress-balance solve so the t=0 state carries real
             # velocities - the reference solves at ice-dynamics
             # initialisation (ice_dynamics_main.f90:1412 +
@@ -275,6 +275,12 @@ class ModelRegion:
                            if C.choice_GIA_model != "none" else _BIG,
                            "bed_roughness": (t0 + C.bed_roughness_nudging_dt)
                            if self.do_nudging else _BIG,
+                           "basal_hydro": t0
+                           if C.choice_basal_hydrology_model == "Salle2025"
+                           else _BIG,
+                           "tracers": (t0 + C.tractrackpart_dt_coupling)
+                           if C.choice_tracer_tracking_model == "particles"
+                           else _BIG,
                            "output": t0, "output_restart": t0,
                            "checksum": t0 if C.do_write_checksum_log
                            else _BIG}
@@ -282,9 +288,20 @@ class ModelRegion:
                             "SMB": C.dt_SMB, "BMB": C.dt_BMB,
                             "LMB": C.dt_LMB, "GIA": C.dt_GIA,
                             "bed_roughness": C.bed_roughness_nudging_dt,
+                            "basal_hydro": C.dt_basal_hydro,
+                            "tracers": C.tractrackpart_dt_coupling,
                             "output": C.dt_output,
                             "output_restart": C.dt_output_restart,
                             "checksum": min(C.dt_SMB, C.dt_BMB)}
+            # Lagrangian tracers (tracer_tracking_main.f90): the spawn
+            # vertices are drawn on the host from a generator seeded with
+            # 7, so the card and the host draw the same (the JAX package
+            # draws them with jax.random from PRNGKey(7); ROADMAP C)
+            if C.choice_tracer_tracking_model == "particles":
+                self._build_tracers()
+                self.tracer_state = self._tracer_init(self.state, t0)
+                self._tracer_gen = torch.Generator().manual_seed(7)
+
             self.n_dt_ice = 0
             self.n_mesh_updates = 0
             self.remesh_timings = []
@@ -345,6 +362,12 @@ class ModelRegion:
             self._thermo_step = \
                 lambda md_, s, T_surf, SMB, BMB: run_thermodynamics(
                     C, md_, s, dt_th, T_surf, SMB, BMB, heat)
+
+    def _build_tracers(self):
+        """The particle tracker's mesh-sized tables and closures."""
+        loc = PointLocator(self.mesh, self.device)
+        (self._tracer_init, self._tracer_step, self._tracer_spawn,
+         self._tracer_to_mesh) = make_tracer_stepper(self.C, self.md, loc)
 
     def _refresh_forcing(self):
         """The component models' fields at the region's time (after a
@@ -526,6 +549,16 @@ class ModelRegion:
                 tr = Transect.from_config_str(self.mesh, spec.strip())
                 self.transect_out.append(TransectOutputFile(
                     out / f"transect_{tr.name}.nc", tr))
+        # a scalar file per region of interest (scalar_output_files_ROI.f90)
+        self.roi_scalar_out = {}
+        self.roi_history = {}
+        for roi in (r.strip() for r in
+                    self.C.choice_regions_of_interest.split(",")):
+            if roi:
+                self.roi_scalar_out[roi] = ScalarOutputFile(
+                    out / f"scalar_output_{self.name}_{roi}_00001.nc")
+                self.roi_history[roi] = []
+        self._roi_masks = self._build_roi_masks()
         # ISMIP-standard gridded output (ismip_grid_output_files.f90)
         self.ismip_out = None
         if self.C.do_create_ismip_output:
@@ -551,6 +584,14 @@ class ModelRegion:
         self.grid_out.update_mesh(self.mesh)
         for tout in self.transect_out:
             tout.tr = Transect(self.mesh, tout.tr.points, tout.tr.name)
+        self._roi_masks = self._build_roi_masks()
+
+    def _build_roi_masks(self):
+        """The vertices inside each region of interest of the scalar
+        files, on the current mesh."""
+        return {roi: torch.as_tensor(
+            points_in_polygon(self.mesh.V, calc_roi_polygon(roi)),
+            device=self.device) for roi in self.roi_scalar_out}
 
     def _ismip_map(self, f):
         M = get_map(self.mesh, self._out_grid)
@@ -691,6 +732,12 @@ class ModelRegion:
                 fields["TAF"], fields["mask_grounded_ice"] > 0.5)
             fields[name] = calc_mesh_contour(self.mesh, dmask, level)
         self.scalar_out.write(self.time, scal)
+        for roi, mask in self._roi_masks.items():
+            rs = calc_ice_scalars(self.md, s.Hi, s.Hb, s.SL, None, self.SMB,
+                                  self.BMB, self.LMB, roi_mask=mask)
+            rs = {k: float(v) for k, v in host_arrays(rs).items()}
+            self.roi_scalar_out[roi].write(self.time, rs)
+            self.roi_history[roi].append({"time": self.time, **rs})
         self.mesh_out.write(self.time, fields)
         self.grid_out.write(self.time, fields)
         for tout in self.transect_out:
@@ -815,7 +862,8 @@ class ModelRegion:
             self.t_next[name] = self.t_next[name] + self.dt_comp[name]
 
         # the JAX package's order: climate, ocean, SMB, masks, BMB, LMB,
-        # GIA, then the bed-roughness nudging
+        # the basal hydrology, the tracers, GIA, then the bed-roughness
+        # nudging
         if need("climate"):
             self.climate = self.run_climate(t, s)
             self._T_surf = self.climate["T2m"].mean(dim=1)
@@ -834,6 +882,14 @@ class ModelRegion:
         if need("LMB"):
             self.LMB = self.run_lmb(t, s, masks)
             bump("LMB")
+        if need("basal_hydro"):
+            if masks is None:
+                masks, fg = self._masks_fracs(s.Hi, s.Hb, s.SL)
+            self._run_hydrology(s, masks)
+            bump("basal_hydro")
+        if need("tracers"):
+            self._run_tracers(s, t)
+            bump("tracers")
         if need("GIA"):
             # the bed moves by the change of its deformation
             _, dHb = self.run_gia(t, s, self.dt_comp["GIA"])
@@ -856,6 +912,31 @@ class ModelRegion:
         if need("output_restart"):
             self.write_restart()
             bump("output_restart")
+
+    def _run_hydrology(self, s, masks):
+        """One Salle2025 leg on the state at the event's time, with the base
+        velocities on the a-grid (the reference's ice%u_base); its till
+        effective pressure goes into the slot the sliding laws read."""
+        u_base_a = self.md.M_map_b_a @ s.u_3D_b[:, -1].contiguous()
+        v_base_a = self.md.M_map_b_a @ s.v_3D_b[:, -1].contiguous()
+        self.hydro_state, N_til, _, n_sub = run_salle2025_leg(
+            self.C, self.md, self.hydro_state, s.Hi, s.Hb,
+            masks["mask_grounded_ice"], u_base_a, v_base_a)
+        self.md.extras["hydro_N_eff"].arr = N_til
+        self.hydro_substeps.append(n_sub)
+
+    def _spawn_draw(self, n):
+        """The vertex indices of a spawn event: n draws from the host
+        generator, on the region's device."""
+        return torch.randint(0, self.md.nV, (n,),
+                             generator=self._tracer_gen).to(self.device)
+
+    def _run_tracers(self, s, t):
+        """Spawn at the surface, then one RK2 step of the particles."""
+        idx = self._spawn_draw(self.tracer_state.x.shape[0])
+        self.tracer_state = self._tracer_spawn(self.tracer_state, s, t, idx)
+        self.tracer_state = self._tracer_step(
+            self.tracer_state, s, self.dt_comp["tracers"], t)
 
     def _nudge_bed_roughness(self, s, masks):
         """One nudging step of the bed roughness towards the PD reference
@@ -918,6 +999,7 @@ class ModelRegion:
         t_maps = _time.perf_counter()
 
         glen_scale = self.md.extras.get("glen_A_scale")
+        old_N_eff = self.md.extras.get("hydro_N_eff")
         self.mesh = new_mesh
         self.md = build_mesh_data(new_mesh, dtype=self.md.A.dtype,
                                   device=self.device)
@@ -974,6 +1056,21 @@ class ModelRegion:
                 new_r.carry_state_from(old_r, remap_tri)
         self.bed_roughness_state = BedRoughnessState(
             generic=self.state.bed_roughness)
+        # Salle2025: the sheet and till water and the pressure move with
+        # the trilinear map, and so does the effective-pressure slot
+        # (basal_hydrology_new.f90:1449-1491 remaps them on a mesh update)
+        if C.choice_basal_hydrology_model == "Salle2025":
+            hs = self.hydro_state
+            self.hydro_state = Salle2025State(
+                W=torch.clamp(remap_tri(hs.W), min=0.0),
+                W_til=torch.clamp(remap_tri(hs.W_til), min=0.0),
+                P=remap_tri(hs.P))
+            self.md.extras["hydro_N_eff"] = EField(
+                remap_tri(old_N_eff.arr), "V")
+        # tracers live in physical coordinates and carry over as they are;
+        # the point-location tables and the stepper are rebuilt
+        if C.choice_tracer_tracking_model == "particles":
+            self._build_tracers()
         self._refresh_forcing()
         self._sync()
         t_device = _time.perf_counter()

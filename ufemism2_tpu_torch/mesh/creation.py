@@ -13,7 +13,7 @@ import numpy as np
 
 from .mesh_types import Mesh, mesh_from_points, renumber_mesh_morton
 from .refinement import (LineCriterion, PolygonCriterion, UniformCriterion,
-                         refine_mesh, lloyds_algorithm)
+                         points_in_polygon, refine_mesh, lloyds_algorithm)
 from .grid_contours import contour_lines
 
 
@@ -92,8 +92,28 @@ def geometry_criteria_from_grid(C, x, y, Hi, Hb, SL=None):
     rois = [r.strip() for r in C.choice_regions_of_interest.split(",")
             if r.strip()]
     if rois:
-        raise NotImplementedError(
-            "choice_regions_of_interest: the ROI polygons are not ported yet")
+        from .roi_polygons import calc_roi_polygon
+
+        def add_lines_roi(F, level, res, width, poly):
+            for line in _contour_lines(x, y, F.astype(np.float64), level):
+                inside = points_in_polygon(line, poly)
+                if inside.any():
+                    # split into inside segments
+                    idx = np.flatnonzero(np.diff(
+                        np.r_[False, inside, False].astype(int)))
+                    for a, b in zip(idx[::2], idx[1::2]):
+                        if b - a >= 2:
+                            crits.append(LineCriterion(line[a:b], res,
+                                                       width))
+
+        for roi in rois:
+            poly = calc_roi_polygon(roi)
+            crits.append(PolygonCriterion(poly,
+                                          C.ROI_maximum_resolution_uniform))
+            add_lines_roi(TAFm, 0.0, C.ROI_maximum_resolution_grounding_line,
+                          C.grounding_line_width, poly)
+            add_lines_roi(cf, 0.0, C.ROI_maximum_resolution_calving_front,
+                          C.calving_front_width, poly)
     return crits
 
 

@@ -146,20 +146,22 @@ class PointCriterion:
 
 def points_in_polygon(pts: np.ndarray, poly: np.ndarray) -> np.ndarray:
     """Point-in-polygon test by ray casting (a point is inside where a ray
-    towards +x crosses an odd number of edges). Each edge is tested only
-    against the points whose y lies in its band [min(y0, y1), max(y0, y1)),
-    found by a search in the points sorted by y; the crossing test is
-    the edge loop's, operation for operation."""
+    towards +x crosses an odd number of edges), with matplotlib's rule for
+    points on an edge or a vertex (`Path.contains_points`, the crossings
+    test of its _path.h point_in_path_impl): the edge (x0, y0) -> (x1, y1)
+    counts for the points with (y0 >= y) != (y1 >= y), that is y in the
+    band (min(y0, y1), max(y0, y1)], and is crossed where
+    ((y1 - y) * (x0 - x1) >= (x1 - x) * (y0 - y1)) == (y1 >= y), operation
+    for operation. Each edge is tested only against the points of its
+    band, found by a search in the points sorted by y."""
     x0, y0 = poly[:, 0], poly[:, 1]
     x1, y1 = np.roll(x0, -1), np.roll(y0, -1)
-    dy = y1 - y0
-    ok = dy != 0.0
-    x0, y0, x1, y1, dy = x0[ok], y0[ok], x1[ok], y1[ok], dy[ok]
-    slope = (x1 - x0) / dy
+    ok = y1 != y0
+    x0, y0, x1, y1 = x0[ok], y0[ok], x1[ok], y1[ok]
     order = np.argsort(pts[:, 1], kind="stable")
     ys = pts[order, 1]
-    lo = np.searchsorted(ys, np.minimum(y0, y1), side="left")
-    hi = np.searchsorted(ys, np.maximum(y0, y1), side="left")
+    lo = np.searchsorted(ys, np.minimum(y0, y1), side="right")
+    hi = np.searchsorted(ys, np.maximum(y0, y1), side="right")
     n_in = hi - lo
     crossings = np.zeros(len(pts), dtype=np.int64)
     # (edge, point) pairs in chunks of edges, to bound memory
@@ -175,8 +177,10 @@ def points_in_polygon(pts: np.ndarray, poly: np.ndarray) -> np.ndarray:
         k = np.arange(int(cnt.sum())) - np.repeat(start, cnt) \
             + np.repeat(lo[e0:e1], cnt)
         p = order[k]
-        xi = x0[e] + (pts[p, 1] - y0[e]) * slope[e]
-        crossings += np.bincount(p[pts[p, 0] < xi], minlength=len(pts))
+        tx, ty = pts[p, 0], pts[p, 1]
+        hit = ((y1[e] - ty) * (x0[e] - x1[e])
+               >= (x1[e] - tx) * (y0[e] - y1[e])) == (y1[e] >= ty)
+        crossings += np.bincount(p[hit], minlength=len(pts))
         e0 = e1
     return crossings % 2 == 1
 

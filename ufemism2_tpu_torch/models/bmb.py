@@ -5,7 +5,7 @@ the Leguy et al. 2021 sub-grid schemes): uniform, idealised (uniform, the
 MISMIP+ ice1r melt of Asay-Davis et al. 2016), prescribed and
 prescribed_fixed (a field read from a file), parameterised (the quadratic
 local melt of Favier et al. 2019) and inverted (nudged towards a target
-geometry). 'laddie' raises NotImplementedError (ROADMAP A.17).
+geometry) and laddie (the plume model of models/laddie.py).
 Sign convention: positive BMB = accumulation (refreezing), negative = melt.
 """
 
@@ -135,8 +135,8 @@ def make_run_bmb(C, md, region_name: str, target_geometry=None):
         return run
 
     if choice == "laddie":
-        raise NotImplementedError(
-            "choice_BMB_model 'laddie' is not ported yet (ROADMAP A.17)")
+        from .laddie import make_run_bmb_laddie
+        return make_run_bmb_laddie(C, md, region_name)
 
     raise NotImplementedError(f"choice_BMB_model '{choice}' is not ported "
                               "yet")

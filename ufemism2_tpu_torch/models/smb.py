@@ -4,9 +4,9 @@ Re-design of src/UFEMISM/surface_mass_balance/ (SMB_main.f90 dispatch,
 SMB_idealised.f90, SMB_prescribed.f90, SMB_IMAU_ITM.f90,
 SMB_snapshot_plus_anomalies.f90): uniform, idealised (uniform, EISMINT1
 A-F, Halfar_static), prescribed (a field read from a file), IMAU-ITM (the
-insolation-temperature-melt model with its firn state) and
-snapshot_plus_anomalies. 'reconstructed' raises NotImplementedError: it
-needs the Patagonia ROI polygon (ROADMAP A.15, the ROI polygons).
+insolation-temperature-melt model with its firn state),
+snapshot_plus_anomalies and reconstructed (the Patagonia elevation bands
+inside its ROI polygon).
 """
 
 from __future__ import annotations
@@ -88,12 +88,51 @@ def make_run_smb(C, md, region_name: str):
         return _make_run_snapshot_plus_anomalies(C, md)
 
     if choice == "reconstructed":
-        raise NotImplementedError(
-            "choice_SMB_model 'reconstructed' is not ported yet: it needs "
-            "the Patagonia ROI polygon of mesh/roi_polygons.py (ROADMAP "
-            "A.15, the ROI polygons)")
+        return _make_run_reconstructed(C, md, region_name)
 
     raise NotImplementedError(f"choice_SMB_model '{choice}' not implemented")
+
+
+def _make_run_reconstructed(C, md, region_name):
+    """Patagonia reconstructed SMB (SMB_reconstructed.f90:130-240):
+    elevation-banded SMB inside the Patagonia ROI polygon (positive
+    above the ELA at 500 m, maximal at 1500 m, desertified by 2500 m),
+    flux-divergence-limited ablation outside, with two smoothing passes
+    blending the transition."""
+    if C.choice_regions_of_interest != "Patagonia":
+        raise ValueError("reconstructed SMB only implemented for "
+                         "choice_regions_of_interest == 'Patagonia' "
+                         "(as in the reference)")
+    from ..mesh.refinement import points_in_polygon
+    from ..mesh.roi_polygons import calc_roi_polygon
+    from .bed_roughness import smooth_field
+
+    mesh = getattr(md, "_host_mesh", None)
+    V = mesh.V if mesh is not None else md.V.double().cpu().numpy()
+    inside = torch.as_tensor(
+        points_in_polygon(V, calc_roi_polygon("Patagonia")),
+        device=md.device)
+    Hs_ela, Hs_tla, Hs_dla = 500.0, 1500.0, 2500.0
+    SMB_max, SMB_min = 2.0, -10.0
+
+    def run(time, s=None, climate=None):
+        Hs = s.Hs
+        rising = SMB_max * torch.clamp((Hs - Hs_ela) / (Hs_tla - Hs_ela),
+                                       0.0, 1.0)
+        falling = SMB_max * (1.0 - torch.clamp(
+            (Hs - Hs_tla) / (Hs_dla - Hs_tla), 0.0, 1.0))
+        smb_in = torch.where(Hs <= Hs_tla, rising, falling)
+        smb_out = torch.clamp(torch.clamp(s.divQ - 0.5, min=SMB_min),
+                              max=0.0)
+        smb = torch.where(inside, smb_in, smb_out).to(md.A.dtype)
+        # blend with a smoothed copy inside the ROI (weight ~ elevation)
+        smb_sm = smooth_field(md, smb, n_pass=4)
+        w = torch.clamp(Hs / Hs_dla, 0.0, 1.0)
+        smb = torch.where(inside, w * smb + (1 - w) * smb_sm, smb)
+        # outside: fully smoothed (second pass)
+        smb_sm2 = smooth_field(md, smb, n_pass=4)
+        return torch.where(inside, smb, smb_sm2)
+    return run
 
 
 def _make_run_snapshot_plus_anomalies(C, md):
