@@ -193,9 +193,10 @@ of which ends the run with a non-zero exit if it fails:
               IO_YEARS model years in f32, one run_to a year: the counts
               (pinned by IO_*), the grounding line on the westeast
               transect, the integrated melt and the shelf's mean and max
-              melt, every LADDIE leg (wall, pseudo-steps, laddie_stage
-              launches, the plume's max |dH|, whether a remesh re-ran the
-              initial leg).
+              melt, every LADDIE leg (wall, pseudo-steps, stages, kernel
+              launches: one a leg, the seconds of the compact mesh's
+              rebuild before it, the plume's max |dH|, whether a remesh
+              re-ran the initial leg).
 31. laddie_kernel - laddie_stage (csrc/laddie.cu, one LADDIE stage in two
               launches) against its plain version on the card, to the bit,
               on the operands of 30's last stage (its compact shelf mesh)
@@ -204,14 +205,19 @@ of which ends the run with a non-zero exit if it fails:
               euler, lfra, Jenkins1991 gamma with the ice temperature, the
               idealised subglacial discharge; each with its eager and
               device (graph replay) ms, the plain version's ms and the bound
-              (bytes at 3.35 TB/s); then one fbrk3 step and a 100-step leg
-              (and 20-step legs of fbrk3 with beta, euler and lfra) against
-              the plain ones, with the ms a pseudo-step of each.
+              (bytes at 3.35 TB/s); then laddie_leg (a whole leg in one
+              cooperative launch) against the stage entry's loop and the
+              plain loop over LADDIE_LEG_STEPS on both meshes, f32 and f64,
+              fbrk3 with the default and a non-zero beta, euler and lfra,
+              and against the stage entry over 30's whole initial leg: the
+              ms a pseudo-step of each, the leg's grid and the floor of its
+              grid barriers alone.
 32. laddie_standalone - python -m ufemism2_tpu_torch laddie <cfg> on the
               card in a process of its own (tests/test_laddie.py's
               configuration at 2 km, the schema's dt_laddie and 30-day
               leg): nV, the shelf, the leg's wall and ms a pseudo-step, the
-              mean melt; both output files read back, finite.
+              stages and kernel launches, the mean melt; both output files
+              read back, finite.
 33. small_iceocean - MP_SMALL with the LADDIE melt and the idealised
               subglacial discharge (SMALL_IO), f64, through program.main on
               the card against a CPU process: equal counts, small's gaps,
@@ -1474,6 +1480,7 @@ def zero_counts():
     from ufemism2_tpu_torch.ops import (cuda_bpa, cuda_heat, cuda_laddie,
                                         cuda_spmv)
     cuda_laddie.launches = 0
+    cuda_laddie.kernel_launches = 0
     cuda_spmv.launches = 0
     cuda_spmv.diva_launches = 0
     cuda_heat.launches = 0
@@ -1485,6 +1492,7 @@ def read_counts():
     from ufemism2_tpu_torch.ops import (cuda_bpa, cuda_heat, cuda_laddie,
                                         cuda_spmv)
     return dict(laddie_stage_launches=cuda_laddie.launches,
+                laddie_kernel_launches=cuda_laddie.kernel_launches,
                 stack_spmv_launches=cuda_spmv.launches,
                 diva_apply_launches=cuda_spmv.diva_launches,
                 heat_columns_launches=cuda_heat.launches,
@@ -2579,7 +2587,8 @@ def antarctica_init_phase(files, workdir, years=ANT_INIT_YEARS):
         "gmres_calls", "gmres_unconverged", "thermo_steps", "wall_s",
         "diva_apply_launches", "stack_spmv_launches",
         "heat_columns_launches", "bpa_apply_launches",
-        "line_thomas_launches", "laddie_stage_launches")}
+        "line_thomas_launches", "laddie_stage_launches",
+        "laddie_kernel_launches")}
     window.update(
         ms_per_krylov_it=window["wall_s"] * 1e3 / window["n_Axb_its"],
         sim_yr_per_hr=window["window_yr"] / window["wall_s"] * 3600.0,
@@ -3655,22 +3664,38 @@ ROIS = "Pine_Island_Glacier,Thwaites_Glacier"
 
 
 @contextlib.contextmanager
-def record_laddie_stage():
-    """Within the block, the dict it yields holds under "args" the operands
-    of the last laddie_stage call (the steps made within it call the
-    recorder: make_laddie_step takes the module's function when it is
-    made)."""
+def record_laddie_legs():
+    """Within the block, the list it yields gets the operands (tables,
+    params, scheme, state, masks, forcing, n_steps) of every laddie_leg
+    call (make_laddie_step's `leg` calls the module's function)."""
     from ufemism2_tpu_torch.ops import cuda_laddie
-    last, inner = {}, cuda_laddie.laddie_stage
+    legs, inner = [], cuda_laddie.laddie_leg
 
     def recorded(*a):
-        last["args"] = a
+        legs.append(a)
         return inner(*a)
-    cuda_laddie.laddie_stage = recorded
+    cuda_laddie.laddie_leg = recorded
     try:
-        yield last
+        yield legs
     finally:
-        cuda_laddie.laddie_stage = inner
+        cuda_laddie.laddie_leg = inner
+
+
+def last_stage_operands(leg):
+    """(tables, params, old, ref, masks, forcing) of the last stage of an
+    fbrk3 leg, as the stage entry would have been called: the leg less its
+    last step by the leg entry, then that step's first two stages by the
+    stage entry (the leg entry runs no stage call of its own)."""
+    from ufemism2_tpu_torch.ops import cuda_laddie as cl
+    tab, P, sch, state, lm, fc, n = leg
+    assert sch.kind == "fbrk3"
+    now = cl.laddie_leg(tab, P, sch, state, lm, fc, n - 1)[0] if n > 1 \
+        else state
+    st = now
+    for dt_i, visc, kind, coefs in sch.stages()[:2]:
+        st = cl.laddie_stage(tab, P, st, st, lm, fc, dt_i, visc,
+                             (kind, coefs, now.H))[0]
+    return tab, P, st, st, lm, fc
 
 
 def laddie_retype(tab, lm, fc, states, dtype):
@@ -3699,14 +3724,20 @@ def laddie_retype(tab, lm, fc, states, dtype):
 
 def laddie_bytes(tab, fc, post, visc):
     """The bytes one stage must move: every table, mask, forcing field and
-    state read once, every output written once."""
+    state read once, every output written once. An ELL row counts its
+    length and the entries the kernel reads: its stored ones and, where
+    the row is padded, one padding entry (the rest add nothing)."""
     nV, nTri = tab.nV, tab.nTri
     size = tab.LcA.element_size()
     Kc = tab.C.shape[1]
     nE = tab.EV.shape[0]
     nd = fc["z_ocean"].shape[0]
-    ell = sum(M.cols.numel() * (4 + size) for M in (
-        tab.M_map_b_a, tab.M_map_a_b, tab.M_ddx_a_b, tab.M_ddy_a_b))
+    ell = 0
+    for pre, M in (("ba", tab.M_map_b_a), ("ab", tab.M_map_a_b),
+                   ("dx", tab.M_ddx_a_b), ("dy", tab.M_ddy_a_b)):
+        m = tab.k32[f"{pre}_len"]
+        read = int(m.sum()) + int((m < M.cols.shape[0]).sum())
+        ell += read * (4 + size) + m.numel() * 4
     tables = (2 * nV * Kc * 4 + 3 * nV * Kc * size + nTri * 3 * 4 * 3
               + nE * 2 * 4 * 2 + nTri * 3 * size * 4 + 2 * nTri * size + ell)
     masks = 3 * nV + 3 * nTri
@@ -3751,7 +3782,11 @@ def laddie_case(name, tab, P, old, ref, lm, fc, dt_i, visc, post):
                        LADDIE_PLAIN_REPS, warm=1)
     nbytes = laddie_bytes(tab, fc, post, visc)
     out = dict(case=name, nV=tab.nV, nTri=tab.nTri,
-               dtype=str(ref.H.dtype)[6:], launches_a_stage=2,
+               dtype=str(ref.H.dtype)[6:],
+               lanes=cl.row_lanes(tab, fc, ref.H.dtype),
+               longest_ell_row=max(int(tab.k32[f"{p}_len"].max())
+                                   for p in ("ba", "ab", "dx", "dy")),
+               launches_a_stage=2,
                bit_equal=bit_equal, max_abs_err=max_err, ms=ms,
                device_ms=device_ms, plain_ms=plain_ms, bytes=nbytes,
                bound_ms=nbytes / 3.35e12 * 1e3, bound_by="bytes",
@@ -3760,49 +3795,113 @@ def laddie_case(name, tab, P, old, ref, lm, fc, dt_i, visc, post):
     return out
 
 
-def laddie_step_check(name, C, md, state, lm, fc, n_steps):
-    """One step and an n_steps leg of make_laddie_step with the kernel
-    against the same with the plain stage, on the card: bit-equal states
-    and melt; the ms a pseudo-step of each."""
-    from ufemism2_tpu_torch.models.laddie import make_laddie_step
+def events_ms(fn):
+    """The device time of fn() in ms (CUDA events around one call)."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1), out
+
+
+def plain_leg(tab, P, sch, state, lm, fc, n_steps):
+    """The loop of plain stages over n_steps pseudo-steps on the card:
+    one step captured in a CUDA graph and replayed, its inputs copied from
+    its outputs between replays (the plain version's own kernels, without
+    the host's launch cost of a few hundred eager operations a stage).
+    (state, melt of the last stage)."""
     from ufemism2_tpu_torch.ops import cuda_laddie as cl
-    sk = make_laddie_step(C, md)
-    sp = make_laddie_step(C, md, stage_fn=cl.laddie_stage_plain)
-    res = {}
-    for tag, step in (("kernel", sk), ("plain", sp)):
-        carry, ph = step((state, state), lm, fc)
-        one = (carry, ph["melt"])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        carry = (state, state)
-        for _ in range(n_steps):
-            carry, ph = step(carry, lm, fc)
-        torch.cuda.synchronize()
-        res[tag] = (one, carry, ph["melt"],
-                    (time.perf_counter() - t0) * 1e3 / n_steps)
-    (k1, km1), kc, km, k_ms = res["kernel"]
-    (p1, pm1), pc, pm, p_ms = res["plain"]
+    from ufemism2_tpu_torch.ops.cuda_laddie import LaddieState
+    now = LaddieState(*(t.clone() for t in state))
+    nm1 = LaddieState(*(t.clone() for t in state))
+    step = lambda: cl.laddie_step(tab, P, sch, (now, nm1), lm, fc,
+                                  cl.laddie_stage_plain)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        (out_now, out_nm1), ph = step()
+    for _ in range(n_steps):
+        graph.replay()
+        for a, b in zip(now + nm1, out_now + out_nm1):
+            a.copy_(b)
+    return now, ph["melt"]
+
+
+def laddie_leg_check(name, tab, P, sch, state, lm, fc, n_steps,
+                     plain=True):
+    """A leg of n_steps pseudo-steps three ways on the card: the leg entry
+    (one cooperative launch), the stage entry's loop (laddie_step with
+    laddie_stage) and, with `plain`, the loop of plain stages (plain_leg);
+    the states and the last stage's melt bit-equal. The ms a pseudo-step
+    of each (the plain loop's from its graph replay), the leg's grid, and
+    the floor of its grid barriers alone on that grid (an empty persistent
+    kernel, two a stage)."""
+    from ufemism2_tpu_torch.ops import cuda_laddie as cl
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry = (state, state)
+    for _ in range(n_steps):
+        carry, ph = cl.laddie_step(tab, P, sch, carry, lm, fc,
+                                   cl.laddie_stage)
+    torch.cuda.synchronize()
+    runs = {"stage": (carry[0], ph["melt"],
+                      (time.perf_counter() - t0) * 1e3 / n_steps)}
+    if plain:
+        plain_ms, (p_state, p_melt) = events_ms(
+            lambda: plain_leg(tab, P, sch, state, lm, fc, n_steps))
+        runs["plain"] = (p_state, p_melt, plain_ms / n_steps)
+    cl.laddie_leg(tab, P, sch, state, lm, fc, 2)          # warm
+    leg_ms, (leg_state, leg_melt) = events_ms(
+        lambda: cl.laddie_leg(tab, P, sch, state, lm, fc, n_steps))
+    grid = cl.last_leg_grid
+    floor_ms, _ = events_ms(lambda: cl.leg_barriers(
+        tab, P, sch, state, lm, fc, n_steps))
+    ref_state, ref_melt, _ = runs["plain" if plain else "stage"]
     eq = [laddie_equal(a, b) for a, b in
-          list(zip(k1[0], p1[0])) + list(zip(k1[1], p1[1])) + [(km1, pm1)]
-          + list(zip(kc[0], pc[0])) + list(zip(kc[1], pc[1])) + [(km, pm)]]
-    out = dict(case=name, steps=n_steps, bit_equal=all(e for e, _ in eq),
-               max_abs_err=max(m for _, m in eq), ms_a_step=k_ms,
-               plain_ms_a_step=p_ms, speedup=p_ms / k_ms)
-    say("laddie_step", **out)
+          list(zip(leg_state, ref_state)) + [(leg_melt, ref_melt)]]
+    if plain:
+        eq += [laddie_equal(a, b) for a, b in
+               list(zip(runs["stage"][0], ref_state))
+               + [(runs["stage"][1], ref_melt)]]
+    n_stages = len(sch.stages())
+    out = dict(case=name, nV=tab.nV, nTri=tab.nTri,
+               dtype=str(state.H.dtype)[6:], scheme=sch.kind,
+               lanes=cl.row_lanes(tab, fc, state.H.dtype),
+               beta=list(sch.beta), steps=n_steps,
+               bit_equal=all(e for e, _ in eq),
+               max_abs_err=max(m for _, m in eq),
+               leg_ms_a_step=leg_ms / n_steps,
+               leg_ms_a_stage=leg_ms / n_steps / n_stages,
+               stage_entry_ms_a_step=runs["stage"][2],
+               plain_ms_a_step=runs["plain"][2] if plain else None,
+               grid_blocks=grid,
+               barrier_floor_ms_a_step=floor_ms / n_steps,
+               bytes_bound_ms_a_step=n_stages * laddie_bytes(
+                   tab, fc, sch.stages()[-1][2:], True) / 3.35e12 * 1e3)
+    say("laddie_leg", **out)
     return out
 
 
-def laddie_kernel_cases(rec, md_io, C_io, standalone):
+def laddie_kernel_cases(legs, md_io, C_io, standalone):
     """The laddie_kernel phase: laddie_stage against its plain version on
     the operands of the iceocean1r path's last stage (its compact shelf
-    mesh, f32) and of the 2 km standalone set-up (f64), in f32 and f64,
-    for fbrk3's first and third stage with the default and a non-zero
-    beta, euler, lfra, Jenkins1991 gamma with the ice temperature, and the
-    idealised subglacial discharge; then one fbrk3 step and a 100-step leg
-    against the plain ones on both meshes."""
-    from ufemism2_tpu_torch.config import Config
-    from ufemism2_tpu_torch.ops.cuda_laddie import LaddieState
-    tab0, P0, old0, ref0, lm0, fc0 = rec["args"][:6]
+    mesh, f32; `legs` are its recorded legs) and of the 2 km standalone
+    set-up (f64), in f32 and f64, for fbrk3's first and third stage with
+    the default and a non-zero beta, euler, lfra, Jenkins1991 gamma with
+    the ice temperature, and the idealised subglacial discharge; then the
+    leg entry against the stage entry's loop and the plain loop over
+    LADDIE_LEG_STEPS on both meshes, f32 and f64, for fbrk3 with the
+    default and a non-zero beta, euler and lfra; and the leg entry against
+    the stage entry over the whole initial leg of the compact mesh."""
+    from ufemism2_tpu_torch.ops.cuda_laddie import LaddieScheme, LaddieState
+    tab0, P0, old0, ref0, lm0, fc0 = last_stage_operands(legs[-1])
     dt = C_io.dt_laddie
     cases = []
 
@@ -3854,26 +3953,43 @@ def laddie_kernel_cases(rec, md_io, C_io, standalone):
                                             dtype)
         variants(f"standalone2km_{str(dtype)[6:]}", tab, lm, fc, ref,
                  md_sa.V[:, 1].to(dtype))
-    steps = [laddie_step_check("iceocean1r_f32_fbrk3", C_io, md_io,
-                               LaddieState(*ref0), lm0, fc0,
-                               LADDIE_LEG_STEPS),
-             laddie_step_check("standalone2km_f64_fbrk3", C_sa, md_sa, st_sa,
-                               lm_sa, fc_sa, LADDIE_LEG_STEPS)]
-    beta = dict(laddie_fbrk3_beta1=0.5, laddie_fbrk3_beta2=0.5,
-                laddie_fbrk3_beta3=0.344)
-    for scheme, over in (("fbrk3_beta", dict(beta)),
-                         ("euler", dict(choice_laddie_integration_scheme=
-                                        "euler")),
-                         ("lfra", dict(choice_laddie_integration_scheme=
-                                       "lfra"))):
-        Cx = Config(**dict(LADDIE_STANDALONE, **over))
-        steps.append(laddie_step_check(f"standalone2km_f64_{scheme}", Cx,
-                                       md_sa, st_sa, lm_sa, fc_sa, 20))
+    # the leg entry: every scheme on both meshes, f32 and f64
+    base = LaddieScheme.from_config(C_io)
+    schemes = (("fbrk3", base),
+               ("fbrk3_beta", dataclasses_replace(base,
+                                                  beta=(0.5, 0.5, 0.344))),
+               ("euler", dataclasses_replace(base, kind="euler")),
+               ("lfra", dataclasses_replace(base, kind="lfra")))
+    steps = []
+    for mesh_tag, (tab_m, lm_m, fc_m, st_m) in (
+            ("iceocean1r", (tab0, lm0, fc0, LaddieState(*ref0))),
+            ("standalone2km", (tab_sa, lm_sa, fc_sa, st_sa))):
+        for dtype in (torch.float32, torch.float64):
+            tab, lm, fc, (st,) = laddie_retype(tab_m, lm_m, fc_m, [st_m],
+                                               dtype)
+            for name, sch in schemes:
+                if mesh_tag == "standalone2km":
+                    sch = dataclasses_replace(sch, dt=C_sa.dt_laddie)
+                steps.append(laddie_leg_check(
+                    f"{mesh_tag}_{str(dtype)[6:]}_{name}", tab, P0, sch, st,
+                    lm, fc, LADDIE_LEG_STEPS))
+    # the whole initial leg of the compact mesh, leg entry against the
+    # stage entry
+    first = next(l for l in legs if l[6] == leg_steps_of(C_io, True))
+    steps.append(laddie_leg_check("iceocean1r_initial_leg", *first,
+                                  plain=False))
     bad = [c["case"] for c in cases + steps if not c["bit_equal"]]
     say("laddie_kernel", cases=len(cases), legs=len(steps),
         not_bit_equal=bad)
     assert not bad, f"laddie_stage differs from its plain version: {bad}"
     return cases, steps
+
+
+def leg_steps_of(C, initial):
+    """The pseudo-steps of the initial or of a later LADDIE leg of C."""
+    from ufemism2_tpu_torch.models.laddie import leg_steps
+    return leg_steps(C, C.time_duration_laddie_init if initial
+                     else C.time_duration_laddie)
 
 
 def dataclasses_replace(obj, **kw):
@@ -3927,6 +4043,7 @@ def laddie_standalone_phase(workdir):
             "sys.argv[2]]); "
             "print('LADDIE_RESULT ' + json.dumps(dict(r.last, "
             "launches=cuda_laddie.launches, "
+            "kernel_launches=cuda_laddie.kernel_launches, "
             "process_s=time.perf_counter() - t0)), flush=True)")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", code, cfg, out_dir],
@@ -3952,11 +4069,15 @@ def laddie_standalone_phase(workdir):
                ms_a_step=res["wall_s"] * 1e3 / res["steps"],
                mean_melt_m_yr=res["mean_melt"],
                laddie_stage_launches=res["launches"],
+               laddie_kernel_launches=res["kernel_launches"],
                process_s=res["process_s"], subprocess_wall_s=wall,
                files=files)
     say("laddie_standalone", **out)
     assert res["shelf"] > 0 and res["mean_melt"] > 0.0
     assert res["launches"] >= 3 * res["steps"] - 3
+    # each output leg one launch of the leg entry and its diagnostic step
+    # two a stage
+    assert res["kernel_launches"] == 7 * res["legs"], res
     assert all(f["frames"] >= 1 and f["finite"] for f in files.values())
     return out
 
@@ -3966,14 +4087,15 @@ def iceocean1r_phase(workdir):
     retreat leg's start-up, then IO_YEARS model years, one run_to a year):
     the counts, the yearly grounding line on the westeast transect, the
     integrated melt and the mean and max melt on the shelf, every LADDIE
-    leg (wall, pseudo-steps, laddie_stage launches, max |dH| of the plume,
-    whether it was an initial leg), the launches of every kernel counted
-    around the years. Returns (numbers, the recorded last stage, region)."""
+    leg (wall, pseudo-steps, stages, kernel launches, the seconds of the
+    compact mesh's rebuild before it, max |dH| of the plume, whether it was
+    an initial leg), the launches of every kernel counted around the
+    years. Returns (numbers, the recorded legs' operands, region)."""
     from ufemism2_tpu_torch.config import Config
     C = Config(**dict(MP_ICEOCEAN1R, tpu_precision="f32"))
     t_start = MP_ICEOCEAN1R["start_time_of_run"]
     out_dir = os.path.join(workdir, "iceocean1r_f32")
-    with record_laddie_stage() as rec:
+    with record_laddie_legs() as rec:
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(sys.stderr):
             r = resume_region(C, MP_RESTART, "cuda", out_dir)
@@ -4008,6 +4130,8 @@ def iceocean1r_phase(workdir):
         shelf_melt_m_yr=shelf,
         laddie_legs=[dict(l, ms_a_step=l["wall_s"] * 1e3 / l["steps"])
                      for l in legs],
+        laddie_legs_wall_s=sum(l["wall_s"] for l in legs[legs0:]),
+        compact_rebuild_s=[l["compact_rebuild_s"] for l in legs[legs0:]],
         legs_in_window=len(legs) - legs0,
         initial_legs=sum(l["initial"] for l in legs),
         n_mesh_updates=r.n_mesh_updates,
@@ -4026,6 +4150,10 @@ def iceocean1r_phase(workdir):
         "the iceocean1r path did not go through the kernels"
     assert counts["laddie_stage_launches"] == sum(
         l["stage_launches"] for l in legs[legs0:])
+    # a leg is one kernel launch
+    assert counts["laddie_kernel_launches"] == len(legs) - legs0 \
+        and all(l["kernel_launches"] == 1 for l in legs), \
+        "a LADDIE leg was not one launch of the leg entry"
     assert all(np.isfinite(x) for x in x_GL) and melt[-1] < 0.0
     got = (f32["steps"], f32["n_visc_its"], f32["n_Axb_its"])
     assert got == (IO_STEPS, IO_VISC_ITS, IO_AXB_ITS), \
@@ -4305,6 +4433,7 @@ def laddie_kernel_entry(nums, cases, steps, ant_hydro=None):
     """The laddie_stage entry of the kernels line: the hot case is the
     iceocean1r path's own f32 fbrk3 third stage."""
     hot = next(c for c in cases if c["case"] == "iceocean1r_float32_fbrk3_s3")
+    leg = next(c for c in steps if c["case"] == "iceocean1r_float32_fbrk3")
     return {
         "name": "laddie_stage", "route": "cuda",
         "source": "ufemism2_tpu_torch/csrc/laddie.cu",
@@ -4319,12 +4448,23 @@ def laddie_kernel_entry(nums, cases, steps, ant_hydro=None):
                 nums["standalone"]["laddie_stage_launches"],
             "small_iceocean":
                 nums["small_iceocean"]["laddie_stage_launches_card"]},
-        "launches_unit": "stages (two kernel launches each)",
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "launches_unit": "stages (in a leg one launch of the leg entry, "
+                         "else two a stage)",
+        "kernel_launches_by_path": {
+            "mismipplus_iceocean1r":
+                nums["iceocean1r"]["laddie_kernel_launches"],
+            "laddie_standalone":
+                nums["standalone"]["laddie_kernel_launches"]},
+        "max_abs_err": max(c["max_abs_err"] for c in cases + steps),
         "ms": hot["ms"], "device_ms": hot["device_ms"],
         "plain_ms": hot["plain_ms"], "bound_ms": hot["bound_ms"],
         "bound_by": hot["bound_by"], "library_ms": None,
-        "timed_case": hot["case"], "cases": cases, "steps": steps}
+        "timed_case": hot["case"],
+        "leg": {k: leg[k] for k in (
+            "case", "leg_ms_a_step", "leg_ms_a_stage", "stage_entry_ms_a_step",
+            "plain_ms_a_step", "barrier_floor_ms_a_step",
+            "bytes_bound_ms_a_step", "grid_blocks")},
+        "cases": cases, "steps": steps}
 
 
 def main():

@@ -1,0 +1,84 @@
+"""Seconds each phase of a `chip_smoke.py` run took, side by side for
+several runs.
+
+    python3 tools/phase_seconds.py run_a.out run_b.out ...
+
+Reads the JSON lines a run printed; every line with an `at_s` stamp (the
+script's clock when it was printed) is charged the seconds since the line
+before it, under its `phase` (or its `case`). Phases are summed into the
+groups of GROUPS (a phase goes to the group of its longest prefix there),
+each run in a column; the last row is the whole run.
+"""
+import json
+import sys
+
+GROUPS = (
+    ("build and kernel cases", ("device", "build", "bpa_case", "thomas_case",
+                                "kernel_case", "diva_case", "heat_case")),
+    ("8 km main, thermodynamics, Halfar", (
+        "mesh", "small", "small_thermo", "small_mismipplus", "initial_solve",
+        "warm_up", "main_path", "thermo_initial_solve", "thermo_warm_up",
+        "thermo_path", "halfar", "precond_solve")),
+    ("MISMIP+, remesh, resume", ("mismipplus", "remesh", "small_remesh",
+                                 "mismipplus_resume")),
+    ("experiment II, ice1r, Favier, files", (
+        "berends_exp2", "mismipplus_ice1r", "mismipplus_favier",
+        "small_berends", "small_thermo_files")),
+    ("ISMIP-HOM", ("ismip_hom",)),
+    ("small_ismip (waits on its CPU job)", ("small_ismip",)),
+    ("Antarctica, climate, hydrology", ("antarctica", "small_climate",
+                                        "small_hydro")),
+    ("mismipplus_iceocean1r", ("mismipplus_iceocean1r",)),
+    ("LADDIE kernel cases and legs", ("laddie_case", "laddie_step",
+                                      "laddie_leg", "laddie_kernel")),
+    ("laddie_standalone, small_iceocean", ("laddie_standalone",
+                                           "small_iceocean")),
+)
+
+
+def group_of(key):
+    """The group of the longest name in GROUPS that is the key or a prefix
+    of it ending at an underscore."""
+    best, name = 0, "other"
+    for g, keys in GROUPS:
+        for k in keys:
+            if (key == k or key.startswith(k + "_")) and len(k) > best:
+                best, name = len(k), g
+    return name
+
+
+def phase_seconds(path):
+    """{group: seconds} of one run's output."""
+    out, prev = {}, 0.0
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line.startswith("{"):
+                continue
+            try:
+                d = json.loads(line)
+            except ValueError:
+                continue
+            if "at_s" not in d:
+                continue
+            g = group_of(d.get("phase") or d.get("case") or "")
+            out[g] = out.get(g, 0.0) + d["at_s"] - prev
+            prev = d["at_s"]
+    return out
+
+
+def main(paths):
+    runs = [phase_seconds(p) for p in paths]
+    names = [n for n, _ in GROUPS] + ["other"]
+    print("| group | " + " | ".join(paths) + " |")
+    print("| --- |" + " --- |" * len(paths))
+    for n in names:
+        if any(n in r for r in runs):
+            print(f"| {n} | " + " | ".join(f"{r.get(n, 0.0):.1f}"
+                                          for r in runs) + " |")
+    print("| whole run | " + " | ".join(f"{sum(r.values()):.1f}"
+                                        for r in runs) + " |")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

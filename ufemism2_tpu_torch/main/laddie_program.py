@@ -166,6 +166,6 @@ def run_laddie_standalone(config_path: str, output_dir: str | None = None,
     wall = _time.perf_counter() - t0
     happy("LADDIE standalone done in {:.1f} s -> {}", wall, str(out))
     run_laddie_standalone.last = dict(
-        nV=md.nV, nTri=md.nTri, shelf=n_shelf, steps=n_steps, wall_s=wall,
-        mean_melt=mean_melt)
+        nV=md.nV, nTri=md.nTri, shelf=n_shelf, legs=n_legs, steps=n_steps,
+        wall_s=wall, mean_melt=mean_melt)
     return lst, melt

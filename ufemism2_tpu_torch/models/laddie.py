@@ -10,8 +10,9 @@ on the mesh gated by the shelf masks; on the model's path the leg runs on
 a compact sub-mesh of the shelf and three rings around it.
 
 One stage is `ops/cuda_laddie.py laddie_stage`: the hand-written kernel
-on the card (two launches), its plain tensor version on the host. The leg
-loop stays in Python, with no host read inside it.
+on the card (two launches), its plain tensor version on the host. On the
+card a whole leg is `laddie_leg`, one cooperative launch of the same
+kernel; on the host it is the loop of plain stages.
 
 Physics: 3-equation melt with u*-dependent gamma (laddie_physics.f90:27),
 Gaspar (1988) entrainment, linear EOS buoyancy, upstream momentum and
@@ -35,7 +36,7 @@ import torch
 from ..core.mesh_data import MeshData
 from ..ops import cuda_laddie
 from ..ops.cuda_laddie import (LaddieState, LaddieMasks, LaddieParams,
-                               laddie_tables)
+                               LaddieScheme, laddie_step, laddie_tables)
 from ..utils.constants import sec_per_year
 
 def laddie_masks(md: MeshData, masks):
@@ -150,44 +151,18 @@ def make_calc_SGD(C, md: MeshData):
 def make_laddie_step(C, md: MeshData, stage_fn=None):
     """One pseudo-time fbrk3 / euler / lfra step on md:
     step((now, nm1), lm, forcing) -> ((now, nm1), ph), melt in ph.
-    `stage_fn` is the stage: by default ops/cuda_laddie.py `laddie_stage`
-    (as the module holds it when the step is made), or its plain
-    version."""
+    `stage_fn` is the stage: by default ops/cuda_laddie.py `laddie_stage`,
+    or its plain version. The step carries its tables, params and scheme,
+    which run_laddie_leg hands to `laddie_leg`."""
     stage_fn = stage_fn or cuda_laddie.laddie_stage
-    dt = C.dt_laddie            # [s]
-    scheme = C.choice_laddie_integration_scheme or "fbrk3"
-    if scheme not in ("fbrk3", "euler", "lfra"):
-        raise ValueError(
-            f"unknown choice_laddie_integration_scheme '{scheme}'")
+    sch = LaddieScheme.from_config(C)
     tab = laddie_tables(md)
     prm = LaddieParams.from_config(C)
 
-    def stage(old, ref, lm, fc, dt_i, visc, post=None):
-        return stage_fn(tab, prm, old, ref, lm, fc, dt_i, visc, post)
-
     def step(carry, lm: LaddieMasks, forcing):
-        now, nm1 = carry
-        if scheme == "fbrk3":
-            b1, b2, b3 = (C.laddie_fbrk3_beta1, C.laddie_fbrk3_beta2,
-                          C.laddie_fbrk3_beta3)
-            np13, _, _ = stage(now, now, lm, forcing, dt / 3, False,
-                               ("blend", (b1, 1 - b1), now.H))
-            np12, _, _ = stage(np13, np13, lm, forcing, dt / 2, False,
-                               ("blend", (b2, 1 - b2), now.H))
-            np1, _, ph = stage(np12, np12, lm, forcing, dt, True,
-                               ("blend3", (b3, 1 - 2 * b3, b3), now.H))
-            return (np1, np1), ph
-        if scheme == "lfra":
-            # leapfrog: tendencies at `now`, stepped from `nm1`
-            # (laddie_integration.f90:171-255), then the Robert-Asselin
-            # filter of the centre level with nu = laddie_lfra_nu
-            np1, filt, ph = stage(nm1, now, lm, forcing, dt, True,
-                                  ("lfra", C.laddie_lfra_nu))
-            return (np1, filt), ph
-        np1, _, ph = stage(now, now, lm, forcing, dt, True)
-        return (np1, np1), ph
+        return laddie_step(tab, prm, sch, carry, lm, forcing, stage_fn)
 
-    step.tables = tab
+    step.tables, step.params, step.scheme = tab, prm, sch
     return step
 
 
@@ -222,13 +197,11 @@ def run_laddie_leg(C, md: MeshData, state: LaddieState, lm: LaddieMasks,
     """Integrate the plume for `duration_days` of pseudo-time; returns
     (state, melt [m ice/yr] of the last pseudo-step on the a-grid)."""
     step_fn = step_fn or make_laddie_step(C, md)
-    carry = (state, state)
-    melt = None
-    for _ in range(leg_steps(C, duration_days)):
-        carry, ph = step_fn(carry, lm, forcing)
-        melt = ph["melt"]
+    state, melt = cuda_laddie.laddie_leg(
+        step_fn.tables, step_fn.params, step_fn.scheme, state, lm, forcing,
+        leg_steps(C, duration_days))
     # melt is in m/s of ice; convert to m ice / yr
-    return carry[0], melt * sec_per_year
+    return state, melt * sec_per_year
 
 
 def run_laddie_leg_with_diag(C, md: MeshData, state: LaddieState,
@@ -351,8 +324,10 @@ def make_run_bmb_laddie(C, md: MeshData, region_name: str):
     the initial leg, and restart files hold no plume state, as in the JAX
     package. `run.legs` records each leg: pseudo-steps, wall seconds,
     whether it was the initial one, the (compact) mesh's sizes, the
-    laddie_stage launches and the largest change of the plume thickness
-    on the real rows."""
+    stages (`laddie_stage_launches`), kernel launches (one a leg on the
+    card), the seconds of the compact mesh's rebuild before it (0 when the
+    shelf did not change) and the largest change of the plume thickness on
+    the real rows."""
     from .ocean import ocean_depth_axis
     from .bmb import apply_bmb_subgrid_scheme
     do_compact = bool(getattr(C, "tpu_laddie_compaction", True))
@@ -385,8 +360,9 @@ def make_run_bmb_laddie(C, md: MeshData, region_name: str):
             return C.time_duration_laddie_init, True
         return C.time_duration_laddie, False
 
-    def _leg(md_l, state, lm, fc, duration, step, initial, n_real):
-        n0 = cuda_laddie.launches
+    def _leg(md_l, state, lm, fc, duration, step, initial, n_real,
+             rebuild_s=0.0):
+        n0, k0 = cuda_laddie.launches, cuda_laddie.kernel_launches
         t0 = _time.perf_counter()
         out = run_laddie_leg(C, md_l, state, lm, fc, duration, step)
         if md.device.type == "cuda":
@@ -396,6 +372,8 @@ def make_run_bmb_laddie(C, md: MeshData, region_name: str):
             steps=leg_steps(C, duration), initial=initial, wall_s=wall,
             nV=md_l.nV, nTri=md_l.nTri,
             stage_launches=cuda_laddie.launches - n0,
+            kernel_launches=cuda_laddie.kernel_launches - k0,
+            compact_rebuild_s=rebuild_s,
             dH_max=float((out[0].H[:n_real] - state.H[:n_real]).abs()
                          .max())))
         return out
@@ -413,12 +391,17 @@ def make_run_bmb_laddie(C, md: MeshData, region_name: str):
     def _run_compact(time, s, masks, ocean):
         shelf_np = masks["mask_floating_ice"].cpu().numpy()
         key = shelf_np.tobytes()
+        rebuild_s = 0.0
         if st.get("compact_key") != key:
+            t0 = _time.perf_counter()
             md_c, Vk, Tk, _ = build_compact_laddie_md(md, shelf_np)
             st.update(compact_key=key, md_c=md_c, Vk=Vk, Tk=Tk,
                       step_c=make_laddie_step(C, md_c),
                       iV=torch.as_tensor(Vk[0], device=md.device),
                       iT=torch.as_tensor(Tk[0], device=md.device))
+            if md.device.type == "cuda":
+                torch.cuda.synchronize(md.device)
+            rebuild_s = _time.perf_counter() - t0
         md_c = st["md_c"]
         nVr, nTr = st["Vk"][1], st["Tk"][1]
         iV, iT = st["iV"], st["iT"]
@@ -441,7 +424,7 @@ def make_run_bmb_laddie(C, md: MeshData, region_name: str):
         st_c = LaddieState(H=full.H[iV], U=full.U[iT], V=full.V[iT],
                            T=full.T[iV], S=full.S[iV])
         st_c, melt_c = _leg(md_c, st_c, lm, fc, duration, st["step_c"],
-                            initial, nVr)
+                            initial, nVr, rebuild_s)
         # scatter the compact plume state and melt back to the full mesh
         iVr, iTr = iV[:nVr], iT[:nTr]
 

@@ -1,4 +1,4 @@
-"""The LADDIE stage kernel: build, binding, wrapper and plain version.
+"""The LADDIE kernel: build, binding, wrappers and plain version.
 
 `laddie_stage` does one stage of the LADDIE plume's pseudo-time
 integration, what the JAX package's make_laddie_step `stage` computes
@@ -8,6 +8,8 @@ the scheme's update after it: the fbrk3 beta-blend of the thickness or
 the lfra Robert-Asselin filter. The JAX package runs a leg as one jitted
 lax.fori_loop; in eager PyTorch a stage is a few hundred small launches,
 here it is two (csrc/laddie.cu: a vertex pass, then a triangle pass).
+`laddie_leg` runs a whole leg, n pseudo-steps of `laddie_step`, in one
+cooperative launch of the same source (two grid barriers a stage).
 
 `laddie_stage_plain` is the same stage in plain tensor code: the CPU path,
 and the kernel's oracle on the card, where the two agree to the bit. For
@@ -21,7 +23,8 @@ reciprocal times the scalar) and contracts nothing into a fused
 multiply-add.
 
 A CUDA tensor always goes to the kernel; only CPU tensors take the plain
-version. The CUDA source is compiled with nvcc at first use into its own
+version (a leg on CPU tensors is the loop of plain stages, the leg
+entry's oracle). The CUDA source is compiled with nvcc at first use into its own
 shared library under build/ and loaded with ctypes, as ops/cuda_heat.py
 does for heat_columns.
 """
@@ -42,7 +45,9 @@ from ..utils.constants import (grav, seawater_density, cp_ice, cp_ocean,
                                freezing_lambda_3, Prandtl_number,
                                Schmidt_number)
 
-launches = 0         # laddie_stage launches since the caller last set it to 0
+launches = 0         # stages run since the caller last set it to 0
+kernel_launches = 0  # kernel launches: two a laddie_stage, one a laddie_leg
+last_leg_grid = 0    # the blocks of the last laddie_leg launch
 _lib = None
 
 
@@ -149,6 +154,15 @@ def _ell_of(M):
     return _Ell(cols, cols.long(), M.vals[0].contiguous())
 
 
+def _ell_len(M: _Ell):
+    """Each row's entries up to its last one that is not padding (column 0
+    and value +0.0, as ops/sparse.py pads an ELL row), at least 1: past
+    them every product of the row is the same (csrc/laddie.cu ell_rows)."""
+    real = (M.cols != 0) | (M.vals != 0) | torch.signbit(M.vals)
+    k = torch.arange(1, real.shape[0] + 1, device=real.device)[:, None]
+    return (k * real).amax(dim=0).clamp(min=1).to(torch.int32).contiguous()
+
+
 def laddie_tables(md) -> LaddieTables:
     """The stage's tables on md (from its host mesh and its ELL
     operators). The connection and triangle-triangle geometry is formed in
@@ -172,6 +186,8 @@ def laddie_tables(md) -> LaddieTables:
     TriE = np.maximum(mesh.TriE, 0)
     TriCw = f(np.linalg.norm(mesh.V[mesh.EV[TriE, 0]]
                              - mesh.V[mesh.EV[TriE, 1]], axis=2))
+    ells = dict(ba=_ell_of(md.M_map_b_a), ab=_ell_of(md.M_map_a_b),
+                dx=_ell_of(md.M_ddx_a_b), dy=_ell_of(md.M_ddy_a_b))
     return LaddieTables(
         nV=md.nV, nTri=md.nTri, C=md.C, mask_C=md.mask_C, VE=md.VE,
         LcA=md.Cw / md.A[:, None], Dx_D=md.D_x / md.D, Dy_D=md.D_y / md.D,
@@ -180,14 +196,20 @@ def laddie_tables(md) -> LaddieTables:
         TriE=i(TriE), TDx_D=TriD_x / TriD, TDy_D=TriD_y / TriD, TriD=TriD,
         TriCw=TriCw, TriA=md.TriA,
         nb_border=f((~mask_TriC).sum(axis=1)),
-        M_map_b_a=_ell_of(md.M_map_b_a), M_map_a_b=_ell_of(md.M_map_a_b),
-        M_ddx_a_b=_ell_of(md.M_ddx_a_b), M_ddy_a_b=_ell_of(md.M_ddy_a_b),
+        M_map_b_a=ells["ba"], M_map_a_b=ells["ab"], M_ddx_a_b=ells["dx"],
+        M_ddy_a_b=ells["dy"],
+        # the kernel's: each connection's and each neighbour's triangles
+        # and vertices read directly (of edge or triangle 0 where there is
+        # none, as the padded tables above)
         k32={name: torch.as_tensor(np.ascontiguousarray(t), dtype=torch.int32,
                                    device=dev)
-             for name, t in (("C", mesh.C), ("VE", np.maximum(mesh.VE, 0)),
-                             ("Tri", mesh.Tri), ("EV", mesh.EV),
-                             ("ETri", mesh.ETri), ("TriC", mesh.TriC),
-                             ("TriE", TriE))},
+             for name, t in (("C", mesh.C), ("Tri", mesh.Tri),
+                             ("TriC", mesh.TriC),
+                             ("VET", mesh.ETri[np.maximum(mesh.VE, 0)]),
+                             ("TriET", mesh.ETri[TriE]),
+                             ("TriEV", mesh.EV[TriE]),
+                             ("TriCV", mesh.Tri[TriCc]))}
+        | {f"{pre}_len": _ell_len(M) for pre, M in ells.items()},
         consts={})
 
 
@@ -473,6 +495,65 @@ def laddie_stage_plain(tab: LaddieTables, P: LaddieParams, old, ref, lm, fc,
 
 
 # ---------------------------------------------------------------------------
+# The pseudo-step and the leg
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LaddieScheme:
+    """A pseudo-step's time scheme (laddie_integration.f90)."""
+    kind: str                        # "fbrk3", "euler" or "lfra"
+    dt: float                        # [s]
+    beta: tuple = (0.0, 0.0, 0.0)    # fbrk3's beta1..3
+    nu: float = 0.0                  # lfra's Robert-Asselin nu
+
+    @classmethod
+    def from_config(cls, C):
+        kind = C.choice_laddie_integration_scheme or "fbrk3"
+        if kind not in ("fbrk3", "euler", "lfra"):
+            raise ValueError(
+                f"unknown choice_laddie_integration_scheme '{kind}'")
+        return cls(kind=kind, dt=C.dt_laddie,
+                   beta=(C.laddie_fbrk3_beta1, C.laddie_fbrk3_beta2,
+                         C.laddie_fbrk3_beta3), nu=C.laddie_lfra_nu)
+
+    def stages(self):
+        """A step's stages: [(dt_i, include_visc, post kind, post
+        coefficients)]."""
+        dt = self.dt
+        if self.kind == "fbrk3":
+            b1, b2, b3 = self.beta
+            return [(dt / 3, False, "blend", (b1, 1 - b1)),
+                    (dt / 2, False, "blend", (b2, 1 - b2)),
+                    (dt, True, "blend3", (b3, 1 - 2 * b3, b3))]
+        if self.kind == "lfra":
+            return [(dt, True, "lfra", self.nu)]
+        return [(dt, True, None, None)]
+
+
+def laddie_step(tab, P, sch: LaddieScheme, carry, lm, fc, stage_fn):
+    """One pseudo-step ((now, nm1), lm, fc) -> ((now, nm1), ph) of the
+    scheme, its stages by `stage_fn` (laddie_stage or its plain version):
+    fbrk3 chains now -> np13 -> np12 -> np1, each stage's H blended with the
+    step's starting H; lfra takes the tendencies at `now` and steps from
+    `nm1` (laddie_integration.f90:171-255), then filters the centre level;
+    euler steps from `now`."""
+    now, nm1 = carry
+    if sch.kind == "fbrk3":
+        st = now
+        for dt_i, visc, kind, coefs in sch.stages():
+            st, _, ph = stage_fn(tab, P, st, st, lm, fc, dt_i, visc,
+                                 (kind, coefs, now.H))
+        return (st, st), ph
+    (dt_i, visc, kind, nu), = sch.stages()
+    if kind == "lfra":
+        np1, filt, ph = stage_fn(tab, P, nm1, now, lm, fc, dt_i, visc,
+                                 ("lfra", nu))
+        return (np1, filt), ph
+    np1, _, ph = stage_fn(tab, P, now, now, lm, fc, dt_i, visc)
+    return (np1, np1), ph
+
+
+# ---------------------------------------------------------------------------
 # The kernel
 # ---------------------------------------------------------------------------
 
@@ -488,12 +569,16 @@ _K_NAMES = (
     "GRAV", "HALF_GRAV", "NEG_GRAV", "FCOR", "CD_MOM", "VISC", "INV100",
     "VMAX", "SPEED_FLOOR",
     "C1", "C2", "C3", "HALF_NU", "TWO")       # csrc/laddie.cu enum K_*
+_K_INDEX = {n: j for j, n in enumerate(_K_NAMES)}
+_SK_NAMES = ("DT", "INV_DT", "C1", "C2", "C3", "HALF_NU")  # enum SK_*
 _POST = {None: 0, "blend": 1, "blend3": 2, "lfra": 3}
+_SCHEME = {"fbrk3": 0, "euler": 1, "lfra": 2}
+MAX_ND = 4096        # csrc/laddie.cu UF_LADDIE_MAX_ND: z_ocean in shared memory
 _PTRS = (
-    "C", "VE", "LcA", "Dx_D", "Dy_D", "Tri", "EV", "ETri", "TriC", "TriE",
-    "TDx_D", "TDy_D", "TriD", "TriCw", "TriA", "nb_border",
+    "C", "VET", "LcA", "Dx_D", "Dy_D", "Tri", "TriC", "TriET", "TriEV",
+    "TriCV", "TDx_D", "TDy_D", "TriD", "TriCw", "TriA", "nb_border",
     "ba_cols", "ba_vals", "ab_cols", "ab_vals", "dx_cols", "dx_vals",
-    "dy_cols", "dy_vals",
+    "dy_cols", "dy_vals", "ba_len", "ab_len", "dx_len", "dy_len",
     "a", "gr_a", "oc_a", "b", "gl_b", "cf_b",
     "Hib", "Ti_base", "SGD", "dHib_dx_b", "dHib_dy_b", "z_ocean", "T_ocean",
     "S_ocean",
@@ -510,6 +595,20 @@ class _LaddieDesc(ctypes.Structure):     # csrc/laddie.cu::LaddieDesc
         ("k", ctypes.c_double * len(_K_NAMES))]
 
 
+class _StatePtrs(ctypes.Structure):      # csrc/laddie.cu::StatePtrs
+    _fields_ = [(n, ctypes.c_void_p) for n in LaddieState._fields]
+
+
+class _LegDesc(ctypes.Structure):        # csrc/laddie.cu::LegDesc
+    _fields_ = [("d", _LaddieDesc), ("init", _StatePtrs),
+                ("buf", _StatePtrs * 4), ("Hn", ctypes.c_void_p),
+                ("detr", ctypes.c_void_p), ("ph", ctypes.c_void_p),
+                ("n_steps", ctypes.c_int), ("scheme", ctypes.c_int),
+                ("n_stages", ctypes.c_int), ("visc", ctypes.c_int * 3),
+                ("post", ctypes.c_int * 3),
+                ("sk", (ctypes.c_double * len(_SK_NAMES)) * 3)]
+
+
 def load_kernels():
     """The compiled kernel, built at first use in this process."""
     global _lib
@@ -517,6 +616,14 @@ def load_kernels():
         lib = ctypes.CDLL(str(build_kernel("laddie")))
         for fn in (lib.laddie_stage_f32, lib.laddie_stage_f64):
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        for fn in (lib.laddie_leg_f32, lib.laddie_leg_f64,
+                   lib.laddie_leg_floor_f32, lib.laddie_leg_floor_f64):
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_int
+        for fn in (lib.laddie_lanes_f32, lib.laddie_lanes_f64):
+            fn.argtypes = [ctypes.c_void_p]
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -557,10 +664,22 @@ def _constants(P: LaddieParams, dt_i, post, dtype):
         *(float(np_t(k[n])) for n in _K_NAMES))
 
 
+def _stage_constants(tab, P, dt_i, post, dtype):
+    """_constants of a stage, kept on the tables by the stage's kind."""
+    kind = None if post is None else post[0]
+    key = (dt_i, kind, None if kind is None else post[1], dtype)
+    k = tab.consts.get(key)
+    if k is None:
+        k = tab.consts[key] = _constants(P, dt_i, post, dtype)
+    return k
+
+
 def _check(tab, old, ref, lm, fc):
     dt, dev = ref.H.dtype, ref.H.device
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"laddie_stage: unsupported dtype {dt}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"laddie_stage: unsupported device {dev}")
     nV, nTri = tab.nV, tab.nTri
     nd = fc["z_ocean"].shape[0]
     want = ([(t, (nV,), dt) for t in (old.H, old.T, old.S, ref.H, ref.T,
@@ -582,13 +701,17 @@ def _check(tab, old, ref, lm, fc):
         raise ValueError("laddie_stage: z_ocean needs 2 levels or more")
     if tab.LcA.dtype != dt or tab.LcA.device != dev:
         raise ValueError("laddie_stage: tables of another type or device")
+    if dev.type == "cuda" and nd > MAX_ND:
+        raise ValueError(f"laddie_stage: z_ocean has {nd} levels, the "
+                         f"kernel takes {MAX_ND} at most")
 
 
 def _static_desc(tab: LaddieTables):
     """The descriptor with the tables' fields filled in, once a mesh."""
     d = _LaddieDesc()
     k32 = tab.k32
-    for n in ("C", "VE", "Tri", "EV", "ETri", "TriC", "TriE"):
+    for n in ("C", "VET", "Tri", "TriC", "TriET", "TriEV", "TriCV",
+              "ba_len", "ab_len", "dx_len", "dy_len"):
         setattr(d, n, k32[n].data_ptr())
     for n in ("LcA", "Dx_D", "Dy_D", "TDx_D", "TDy_D", "TriD", "TriCw",
               "TriA", "nb_border"):
@@ -605,48 +728,58 @@ def _static_desc(tab: LaddieTables):
     return d
 
 
+def _set_ptrs(d, named, keep):
+    """Each tensor's address into the descriptor's field of its name (a
+    contiguous copy, kept alive in `keep`, where it is not contiguous)."""
+    for n, t in named.items():
+        if not t.is_contiguous():
+            t = t.contiguous()
+            keep.append(t)
+        setattr(d, n, t.data_ptr())
+
+
+def _set_inputs(d, P, lm, fc, keep):
+    """The masks, the forcing and their flags into the descriptor."""
+    d.jenkins, d.use_Ti = int(P.jenkins), int(bool(fc["use_Ti"]))
+    d.nd = fc["z_ocean"].shape[0]
+    _set_ptrs(d, dict(a=lm.a, gr_a=lm.gr_a, oc_a=lm.oc_a, b=lm.b,
+                      gl_b=lm.gl_b, cf_b=lm.cf_b, Hib=fc["Hib"],
+                      Ti_base=fc["Ti_base"], SGD=fc["SGD"],
+                      dHib_dx_b=fc["dHib_dx_b"], dHib_dy_b=fc["dHib_dy_b"],
+                      z_ocean=fc["z_ocean"], T_ocean=fc["T_ocean"],
+                      S_ocean=fc["S_ocean"]), keep)
+
+
+def _stream(dev):
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
 def laddie_stage(tab: LaddieTables, P: LaddieParams, old, ref, lm, fc, dt_i,
                  include_visc, post=None):
     """One stage and the scheme's update after it: (state, filtered, ph),
     as `laddie_stage_plain` returns them. On a CUDA tensor the kernel (two
     launches), on a CPU tensor the plain version."""
-    global launches
+    global launches, kernel_launches
     _check(tab, old, ref, lm, fc)
     dev = ref.H.device
     if dev.type == "cpu":
         return laddie_stage_plain(tab, P, old, ref, lm, fc, dt_i,
                                   include_visc, post)
-    if dev.type != "cuda":
-        raise ValueError(f"laddie_stage: unsupported device {dev}")
     lib = load_kernels()
     dt = ref.H.dtype
     if tab.desc is None:
         tab.desc = _static_desc(tab)
     d = tab.desc
     kind = None if post is None else post[0]
-    key = (dt_i, kind, None if kind is None else post[1], fc["use_Ti"])
-    k = tab.consts.get(key)
-    if k is None:
-        k = tab.consts[key] = _constants(P, dt_i, post, dt)
-    d.k = k
-    d.jenkins, d.use_Ti, d.visc = int(P.jenkins), int(bool(fc["use_Ti"])), \
-        int(bool(include_visc))
+    d.k = _stage_constants(tab, P, dt_i, post, dt)
+    d.visc = int(bool(include_visc))
     d.post = _POST[kind]
-    d.nd = fc["z_ocean"].shape[0]
-    ins = dict(a=lm.a, gr_a=lm.gr_a, oc_a=lm.oc_a, b=lm.b, gl_b=lm.gl_b,
-               cf_b=lm.cf_b, Hib=fc["Hib"], Ti_base=fc["Ti_base"],
-               SGD=fc["SGD"], dHib_dx_b=fc["dHib_dx_b"],
-               dHib_dy_b=fc["dHib_dy_b"], z_ocean=fc["z_ocean"],
-               T_ocean=fc["T_ocean"], S_ocean=fc["S_ocean"],
-               oH=old.H, oU=old.U, oV=old.V, oT=old.T, oS=old.S,
-               rH=ref.H, rU=ref.U, rV=ref.V, rT=ref.T, rS=ref.S,
-               nowH=post[2] if kind in ("blend", "blend3") else ref.H)
     keep = []
-    for n, t in ins.items():
-        if not t.is_contiguous():
-            t = t.contiguous()
-            keep.append(t)
-        setattr(d, n, t.data_ptr())
+    _set_inputs(d, P, lm, fc, keep)
+    _set_ptrs(d, dict(oH=old.H, oU=old.U, oV=old.V, oT=old.T, oS=old.S,
+                      rH=ref.H, rU=ref.U, rV=ref.V, rT=ref.T, rS=ref.S,
+                      nowH=post[2] if kind in ("blend", "blend3")
+                      else ref.H), keep)
     nV, nTri = tab.nV, tab.nTri
     ev = lambda n: torch.empty(n, dtype=dt, device=dev)
     Hn, Tn, Sn, detr, Un, Vn = ev(nV), ev(nV), ev(nV), ev(nV), ev(nTri), \
@@ -664,12 +797,107 @@ def laddie_stage(tab: LaddieTables, P: LaddieParams, old, ref, lm, fc, dt_i,
                     filt if filt is not None else (Hn,) * 5):
         setattr(d, n, t.data_ptr())
     fn = lib.laddie_stage_f32 if dt == torch.float32 else lib.laddie_stage_f64
-    err = fn(ctypes.addressof(d),
-             torch._C._cuda_getCurrentRawStream(dev.index))
+    err = fn(ctypes.addressof(d), _stream(dev))
     if err != 0:
         raise RuntimeError(f"laddie_stage: kernel launch failed, CUDA error "
                            f"{err}")
     launches += 1
+    kernel_launches += 2
     del keep
     state = LaddieState(H=Hs, U=Un, V=Vn, T=Tn, S=Sn)
     return state, filt, dict(zip(PH_FIELDS, ph))
+
+
+def _leg_desc(tab, P, sch, state, lm, fc, n_steps):
+    """(the leg's descriptor, its four state sets, its ph, the tensors it
+    points to). The state sets, the scratch (H before the blend, detr) and
+    ph are one allocation."""
+    dt, dev = state.H.dtype, state.H.device
+    if tab.desc is None:
+        tab.desc = _static_desc(tab)
+    g = _LegDesc()
+    g.d = tab.desc
+    stages = sch.stages()
+    for j, (dt_i, visc, kind, coefs) in enumerate(stages):
+        k = _stage_constants(tab, P, dt_i,
+                             None if kind is None else (kind, coefs), dt)
+        if j == 0:
+            g.d.k = k
+        for q, n in enumerate(_SK_NAMES):
+            g.sk[j][q] = k[_K_INDEX[n]]
+        g.visc[j], g.post[j] = int(visc), _POST[kind]
+    g.n_steps, g.scheme, g.n_stages = n_steps, _SCHEME[sch.kind], len(stages)
+    keep = []
+    _set_inputs(g.d, P, lm, fc, keep)
+    _set_ptrs(g.init, state._asdict(), keep)
+    nV, nTri = tab.nV, tab.nTri
+    n_set = 3 * nV + 2 * nTri
+    flat = torch.empty(4 * n_set + (2 + len(PH_FIELDS)) * nV, dtype=dt,
+                       device=dev)
+    keep.append(flat)
+    sets = []
+    for j in range(4):
+        H, U, V, T, S = flat[j * n_set:(j + 1) * n_set].split(
+            (nV, nTri, nTri, nV, nV))
+        sets.append(LaddieState(H=H, U=U, V=V, T=T, S=S))
+        _set_ptrs(g.buf[j], sets[j]._asdict(), keep)
+    Hn, detr, ph = flat[4 * n_set:].split((nV, nV, len(PH_FIELDS) * nV))
+    g.Hn, g.detr, g.ph = Hn.data_ptr(), detr.data_ptr(), ph.data_ptr()
+    return g, sets, ph.view(len(PH_FIELDS), nV), keep
+
+
+def laddie_leg(tab: LaddieTables, P: LaddieParams, sch: LaddieScheme,
+               state: LaddieState, lm, fc, n_steps: int):
+    """n_steps pseudo-steps of `laddie_step` from (state, state), a leg:
+    (state, melt [m s^-1] of the last stage), as the loop of steps returns
+    them. On a CUDA tensor one cooperative launch of the kernel (a failed
+    launch raises), on a CPU tensor the loop of plain stages."""
+    global launches, kernel_launches, last_leg_grid
+    _check(tab, state, state, lm, fc)
+    if n_steps < 1:
+        raise ValueError(f"laddie_leg: n_steps {n_steps} < 1")
+    dev = state.H.device
+    if dev.type == "cpu":
+        carry = (state, state)
+        for _ in range(n_steps):
+            carry, ph = laddie_step(tab, P, sch, carry, lm, fc,
+                                    laddie_stage_plain)
+        return carry[0], ph["melt"]
+    g, sets, ph, keep = _leg_desc(tab, P, sch, state, lm, fc, n_steps)
+    last_leg_grid = _leg_launch("laddie_leg", g, state.H.dtype, dev)
+    launches += n_steps * g.n_stages
+    kernel_launches += 1
+    del keep
+    return sets[(n_steps - 1) & 1], ph[0]
+
+
+def _leg_launch(name, g, dtype, dev):
+    """The library's `name`_f32 / _f64 on the leg's descriptor: the grid it
+    took."""
+    lib = load_kernels()
+    fn = getattr(lib, f"{name}_{'f32' if dtype == torch.float32 else 'f64'}")
+    grid = ctypes.c_int(0)
+    err = fn(ctypes.addressof(g), _stream(dev), ctypes.byref(grid))
+    if err != 0:
+        raise RuntimeError(f"{name}: the cooperative launch failed, CUDA "
+                           f"error {err}")
+    return grid.value
+
+
+def leg_barriers(tab, P, sch, state, lm, fc, n_steps):
+    """The barriers of `laddie_leg` on these operands alone: an empty
+    persistent kernel with two grid barriers a stage, on the leg's grid.
+    Returns the grid. For timing; counted nowhere."""
+    g, _, _, keep = _leg_desc(tab, P, sch, state, lm, fc, n_steps)
+    return _leg_launch("laddie_leg_floor", g, state.H.dtype, state.H.device)
+
+
+def row_lanes(tab: LaddieTables, fc, dtype):
+    """The lanes of a warp each row of the tables takes in the kernel (32,
+    4 or 1: the most whose rows fit in one co-resident wave)."""
+    if tab.desc is None:
+        tab.desc = _static_desc(tab)
+    tab.desc.nd = fc["z_ocean"].shape[0]
+    fn = load_kernels().laddie_lanes_f32 if dtype == torch.float32 \
+        else load_kernels().laddie_lanes_f64
+    return fn(ctypes.addressof(tab.desc))
