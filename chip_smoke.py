@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile STEPS] [--profile-out FILE]
-        [--antarctica-only | --laddie-only] [--ant-init-years Y]
+        [--antarctica-only | --laddie-only | --multidevice-only]
+        [--ant-init-years Y]
 
 Needs one CUDA device and nvcc; exits non-zero without them. Phases, each
 of which ends the run with a non-zero exit if it fails:
@@ -61,6 +62,34 @@ of which ends the run with a non-zero exit if it fails:
 9. halfar   - the Halfar dome (SIA) in f64 to 200 model years, held to the
               analytical solution; then the kernel case on the operands
               of the phase's last heat_columns call.
+9b. multidevice - the 8 km configuration sharded over P = 2 and 4 ranks
+              (parallel/launch.py spawn, gloo, every rank on cuda:0; one
+              spawn of 4 ranks, P = 2 on the first two, started before
+              phase 5 so that their start-up goes on beside 5-9, idle
+              until 9b; its processes write to standard error), each rank
+              holding the region:
+              stack_spmv and diva_apply on the rank's extended block
+              gathered bit-equal to the single-device kernel (and
+              diva_apply's sharded plain version to the single-device
+              one), in f64 and in f32 (x rounded); in f32 a short window
+              at P = 1, 2, 4 (Krylov and viscosity iterations, steps,
+              wall a Krylov iteration; volume and mean |dHi| within
+              MD_F32_TOL of P = 1), the collectives' share of a profiled
+              continuation (rank 0, torch.profiler ranges around every
+              collective), then a forced update_mesh and a sharded step
+              on the new mesh (finite, Hi >= 0, every rank the same
+              mesh), and halo_stats(). With --multidevice-only also, in
+              f64 with thermodynamics (GMRES(300), MD_F64), a run_to
+              window with the thermodynamics fused whose one sharded PC
+              step equals the same step on one device (equal counts,
+              Hi_next and the velocities within MD_STEP_TOL of their
+              largest value, masks bitwise) and whose end equals that
+              step and its thermodynamics step on one device (Hi, Ti,
+              u_vav_b within MD_WINDOW_TOL); the whole run leaves it out
+              for the 1,200 s limit (its f64 region's cold initial solve
+              and the steps over gloo take the ranks about 90 s). Every
+              rank counts its launches around each window; the kernels
+              line has their sums by path.
 10. mismipplus - a stand-in MISMIP+ configuration (written inline, as a
               .cfg file) through the program's entry point,
               program.main([cfg, "--output-dir", dir]), on the card in
@@ -88,15 +117,17 @@ of which ends the run with a non-zero exit if it fails:
               operator apply of the remeshed mesh and stack_spmv on its
               five-operator stack against their plain versions.
 13. small_remesh - the coarse configuration in f64 with outputs and one
-              forced update_mesh(), on the card and on the CPU: the same
+              forced update_mesh(), on the card and on the CPU (a process
+              of its own, started with 10): the same
               new mesh, the same steps, viscosity and Krylov iterations
               after it, fields within the small phase's gaps, the mesh
               output at generation 00002.
 14. mismipplus_resume - the JAX package's MISMIP+ 5 km spin-up state
               (the committed NetCDF classic copy of its restart, t =
               11,425) resumed with its flow-factor scale 0.34 and run for
-              one coupling interval with outputs, restarts and remeshing
-              on: in f32 and in f64 on the card, the f64 run held to the
+              half a model year (MP_RESUME_RUN) with outputs, restarts and
+              remeshing on: in f32 and in f64 on the card, the f64 run
+              held to the
               same run on the CPU over its first two ice steps (equal
               counts, small's gaps), and to a fresh region resumed from the
               port's own restart written halfway (equal steps and counts,
@@ -109,7 +140,8 @@ of which ends the run with a non-zero exit if it fails:
               retreat, then friction nudging with an inverted BMB and
               target thinning rates; per leg the steps, counts, wall and
               launches, the nudging events timed, the harness's metrics.
-              The CPU runs that 16-18 are held to run beside it.
+              The CPU runs that 13, 14 and 16-18 are held to start with
+              10 and run beside the card's, one thread each.
 16. mismipplus_ice1r - the state of 14 resumed with the MISMIP+ ice1r
               melt (MP_ICE1R) after the retreat leg's start-up, IR_YEARS
               model years in f32 with the grounding line read on the
@@ -118,8 +150,8 @@ of which ends the run with a non-zero exit if it fails:
               CPU over MP_CMP_YR (equal counts, small's gaps, the first
               BMB field within 1e-12).
 17. mismipplus_favier - the same with the Favier et al. (2019) melt under
-              the ISOMIP+ WARM ocean (MP_FAVIER), one model year; the
-              same checks.
+              the ISOMIP+ WARM ocean (MP_FAVIER), FAVIER_YEARS model
+              years; the same checks.
 18. small_berends - the experiment II chain at 40 km in f64, card and
               CPU: equal counts in every leg, roughness and inverted BMB
               within 1e-10.
@@ -233,8 +265,9 @@ With --antarctica-only the script builds the kernels and runs 26-29 alone
 (no result line); --ant-init-years Y makes 26's window Y model years (not
 ANT_INIT_YEARS; the pins of 26, 27 and 29 are then not held), run in
 windows of ANT_WINDOW_YEARS either way, each printed. With --laddie-only
-it builds the kernels and runs 30-34 alone (no result line). Every result
-line carries `at_s`, the script's elapsed seconds.
+it builds the kernels and runs 30-34 alone (no result line), with
+--multidevice-only 9b alone on the 8 km mesh (no result line). Every
+result line carries `at_s`, the script's elapsed seconds.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -301,7 +334,10 @@ FULL = dict(
     maximum_resolution_ice_front=20e3, ice_front_width=20e3,
     nit_Lloyds_algorithm=2,
 )
-# the coarse configuration of the CPU parity tests
+# the coarse configuration of the CPU parity tests, run SMALL_YR model
+# years card against CPU (two thermodynamics steps at 0.1 years in
+# small_thermo)
+SMALL_YR = 0.2
 SMALL = dict(
     BASE, tpu_precision="f64", dx_refgeo_init_idealised=32e3,
     maximum_resolution_uniform=200e3,
@@ -410,11 +446,17 @@ MP_RESUME = dict(MISMIPPLUS, uniform_Glens_flow_factor=1.156e-17,
                  allow_mesh_updates=True, start_time_of_run=11425.0,
                  end_time_of_run=11426.0, dt_coupling=1.0, dt_output=0.5,
                  dt_output_restart=0.5)
+# mismipplus_resume's run of that state: half a model year, an output and a
+# restart every quarter year (MP_RESUME's year took the phase 130 s, with
+# the whole script near its 1,200 s limit)
+MP_RESUME_RUN = dict(MP_RESUME,
+                     end_time_of_run=MP_RESUME["start_time_of_run"] + 0.5,
+                     dt_output=0.25, dt_output_restart=0.25)
 # the f64 card run is held to the CPU's over its first two ice steps (0.2
 # model years): from the third on, thin ice on the side walls crosses the
 # Hi_min removal threshold at a few vertices, and there the run follows
 # the last bit of any rounding (the phase measures how far one 1e-15
-# perturbation carries by the halfway point)
+# perturbation carries by the run's end, half a model year)
 MP_CMP_YR = 0.2
 # its f32 trajectory on the card: GMRES iterations of the initial solve,
 # Krylov iterations of the run, ice volume at its end [m^3], fixed by the
@@ -495,7 +537,9 @@ MP_ICEOCEAN1R = dict(MP_RESUME, choice_BMB_model_ANT="laddie",
 IO_STEPS, IO_VISC_ITS, IO_AXB_ITS = 49, 224, 42251
 # the quadratic local melt of Favier et al. (2019) under the ISOMIP+ WARM
 # far-field profile (MISOMIP1: MISMIP+ ice under ISOMIP+ forcing), the
-# schema's gamma, an ocean and a BMB event every model year; one model year
+# schema's gamma, an ocean and a BMB event every model year; FAVIER_YEARS
+# model years
+FAVIER_YEARS = 0.5
 MP_FAVIER = dict(MP_RESUME, choice_ocean_model_ANT="idealised",
                  choice_ocean_model_idealised="ISOMIP",
                  choice_ocean_isomip_scenario="WARM",
@@ -516,8 +560,9 @@ MP_FAVIER = dict(MP_RESUME, choice_ocean_model_ANT="idealised",
 # of EXP2_LEGS model years (the reference runs 20,000 / 10 / 2,000), so
 # leg 1 starts from 500 m of ice, not the reference's 100 m slab (whose
 # draft stays above the melt's -100 m and which has no grounded ice for
-# the nudging within a cut leg), and the nudging and BMB events come every
-# model year (the schema's 5 and 10 years would give none in a cut leg)
+# the nudging within a cut leg), the nudging comes every half model year
+# and the BMB events every model year (the schema's 5 and 10 years would
+# give none in a cut leg)
 EXP2 = dict({k: v for k, v in MISMIPPLUS.items()
              if not k.startswith(("BC_u_", "BC_v_", "BC_H_"))},
             choice_sliding_law="Zoet-Iverson",
@@ -530,9 +575,9 @@ EXP2 = dict({k: v for k, v in MISMIPPLUS.items()
             maximum_resolution_calving_front=10e3, calving_front_width=10e3,
             maximum_resolution_ice_front=10e3, ice_front_width=10e3,
             refgeo_idealised_MISMIPplus_Hi_init=500.0,
-            bed_roughness_nudging_dt=1.0, dt_BMB=1.0,
+            bed_roughness_nudging_dt=0.5, dt_BMB=1.0,
             start_time_of_run=0.0)
-EXP2_LEGS = (0.5, 0.5, 1.0)
+EXP2_LEGS = (0.1, 0.1, 0.5)
 # the same chain at 40 km (MP_SMALL's mesh) in f64, the viscosity loop and
 # the corrector cut as in the CPU tests; held card against CPU
 SMALL_EXP2 = dict(EXP2, tpu_precision="f64",
@@ -545,6 +590,7 @@ SMALL_EXP2 = dict(EXP2, tpu_precision="f64",
                   calving_front_width=40e3,
                   maximum_resolution_ice_front=40e3, ice_front_width=40e3,
                   dx_refgeo_init_idealised=10e3,
+                  bed_roughness_nudging_dt=1.0,
                   visc_it_nit=3, pc_nit_max=2)
 SMALL_EXP2_LEGS = (2.0, 1.0, 2.0)
 
@@ -990,17 +1036,17 @@ def heat_case(name, args):
 
 def small_phase(phase, Cs, mesh_s):
     """The coarse f64 configuration on the card (kernels) and on the CPU
-    (plain versions), 0.35 model years: the same steps and viscosity
+    (plain versions), SMALL_YR model years: the same steps and viscosity
     iterations, fields within the gaps of two f64 runs that differ in
     summation order."""
     from ufemism2_tpu_torch.main.region import ModelRegion
     t0 = time.perf_counter()
     r_cpu = ModelRegion(Cs, "ANT", mesh=mesh_s, device="cpu")
-    r_cpu.run_to(0.35)
+    r_cpu.run_to(SMALL_YR)
     t_cpu = time.perf_counter() - t0
     t0 = time.perf_counter()
     r_gpu = ModelRegion(Cs, "ANT", mesh=mesh_s, device="cuda")
-    r_gpu.run_to(0.35)
+    r_gpu.run_to(SMALL_YR)
     t_gpu = time.perf_counter() - t0
     sc, sg = r_cpu.state, r_gpu.state
     gaps = {}
@@ -1620,63 +1666,102 @@ def remesh_phase(mesh):
     return out, diva, stack
 
 
-def small_remesh_phase(workdir, mesh_s):
-    """SMALL_REMESH in f64 with one forced update_mesh() after four ice
-    steps, on the card (kernels) and on the CPU (plain versions), with
-    outputs: both devices build the same new mesh (equal nV and nTri,
-    vertices within 1e-6 m) and then take the same steps, viscosity and
-    Krylov iterations, with fields within small_phase's gaps; the mesh
-    output reaches generation 00002."""
+def small_remesh_run(mesh_s, dev, out_dir):
+    """SMALL_REMESH in f64 on `dev` with outputs: four ice steps, one
+    forced update_mesh(), the steps after it; the numbers small_remesh
+    compares (the fields on the host)."""
     from ufemism2_tpu_torch.config import Config
     from ufemism2_tpu_torch.main.region import ModelRegion
-    C = Config(**SMALL_REMESH)
-    runs, seconds = {}, {}
-    zero_counts()
-    for dev in ("cpu", "cuda"):
-        t0 = time.perf_counter()
-        r = ModelRegion(C, "ANT", mesh=mesh_s, device=dev,
-                        output_dir=os.path.join(workdir, f"remesh_{dev}"))
-        for t in (0.15, 0.35):
-            r.run_to(t)
-        r.update_mesh()
-        n_at, axb_at = r.n_dt_ice, r.state.n_Axb_its
-        visc_at = r.state.n_visc_its
-        for t in (0.45, 0.55, 0.7):
-            r.run_to(t)
-        r.write_output()
-        runs[dev] = (r, n_at, axb_at, visc_at)
-        seconds[dev] = time.perf_counter() - t0
-    counts = read_counts()
-    (rc, nc, ac, vc), (rg, ng, ag, vg) = runs["cpu"], runs["cuda"]
-    sc, sg = rc.state, rg.state
+    t0 = time.perf_counter()
+    r = ModelRegion(Config(**SMALL_REMESH), "ANT", mesh=mesh_s, device=dev,
+                    output_dir=out_dir)
+    for t in (0.15, 0.35):
+        r.run_to(t)
+    r.update_mesh()
+    n_at, axb_at = r.n_dt_ice, r.state.n_Axb_its
+    visc_at = r.state.n_visc_its
+    for t in (0.45, 0.55, 0.7):
+        r.run_to(t)
+    r.write_output()
+    s = r.state
+    return dict(nV=r.mesh.nV, nTri=r.mesh.nTri, V=np.asarray(r.mesh.V),
+                steps_after=r.n_dt_ice - n_at,
+                n_visc_its_after=s.n_visc_its - visc_at,
+                n_Axb_its_after=s.n_Axb_its - axb_at,
+                remesh_s=r.remesh_timings[0],
+                gens=sorted(p for p in os.listdir(out_dir)
+                            if p.startswith("main_output_ANT_0")),
+                seconds=time.perf_counter() - t0,
+                **{k: getattr(s, k).double().cpu() for k in RESUME_FIELDS})
+
+
+def cpu_small_remesh(workdir, snapshot_path):
+    """small_remesh_run on the CPU (plain versions) on SMALL's mesh, built
+    here as main() builds it, saved to snapshot_path; run in a process of
+    its own on one thread (as cpu_resume_snapshot)."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.mesh import build_mesh_from_config
+    torch.set_num_threads(1)
+    mesh_s = build_mesh_from_config(Config(**SMALL), "ANT")
+    with contextlib.redirect_stdout(sys.stderr):
+        snap = small_remesh_run(mesh_s, "cpu", workdir)
+    torch.save(snap, snapshot_path)
+
+
+def start_small_remesh_cpu(workdir):
+    """The CPU's run that small_remesh_phase holds the card to, started in
+    a process of its own: (process, the path of its result)."""
+    cpu_out = os.path.join(workdir, "small_remesh_cpu.pt")
+    return start_cpu_job("cpu_small_remesh",
+                         os.path.join(workdir, "remesh_cpu"),
+                         cpu_out), cpu_out
+
+
+def small_remesh_phase(workdir, mesh_s, cpu_job):
+    """SMALL_REMESH in f64 with one forced update_mesh() after four ice
+    steps, on the card (kernels) and on the CPU (plain versions; cpu_job,
+    from start_small_remesh_cpu), with outputs: both devices build the
+    same new mesh (equal nV and nTri, vertices within 1e-6 m) and then take
+    the same steps, viscosity and Krylov iterations, with fields within
+    small_phase's gaps; the mesh output reaches generation 00002."""
+    cpu, cpu_out = cpu_job
+    try:
+        zero_counts()
+        card = small_remesh_run(mesh_s, "cuda",
+                                os.path.join(workdir, "remesh_cuda"))
+        counts = read_counts()
+        host, cpu_wait_s = finish_cpu_job(cpu, cpu_out, "small_remesh")
+    finally:
+        if cpu.poll() is None:
+            cpu.kill()
+            cpu.wait()
+    runs = {"cpu": host, "cuda": card}
     gaps = {}
-    for name in ("Hi", "u_vav_b", "v_vav_b"):
-        a, b = getattr(sc, name), getattr(sg, name).cpu()
+    for name in RESUME_FIELDS:
+        a, b = host[name], card[name]
         gaps[name] = float((a - b).abs().max() / a.abs().max())
-    same_mesh = (rc.mesh.nV, rc.mesh.nTri) == (rg.mesh.nV, rg.mesh.nTri)
-    v_gap = float(np.abs(rc.mesh.V - rg.mesh.V).max()) if same_mesh \
+    same_mesh = (host["nV"], host["nTri"]) == (card["nV"], card["nTri"])
+    v_gap = float(np.abs(host["V"] - card["V"]).max()) if same_mesh \
         else None
-    gens = {dev: sorted(p for p in os.listdir(
-        os.path.join(workdir, f"remesh_{dev}")) if p.startswith(
-        "main_output_ANT_0")) for dev in runs}
-    out = dict(nV_before=mesh_s.nV, nV_after=[rc.mesh.nV, rg.mesh.nV],
-               nTri_after=[rc.mesh.nTri, rg.mesh.nTri], V_gap_m=v_gap,
-               steps_after=[rc.n_dt_ice - nc, rg.n_dt_ice - ng],
-               n_visc_its_after=[sc.n_visc_its - vc, sg.n_visc_its - vg],
-               n_Axb_its_after=[sc.n_Axb_its - ac, sg.n_Axb_its - ag],
-               rel_gap=gaps, mesh_output_files=gens["cuda"],
-               remesh_s=rg.remesh_timings[0], seconds_cpu=seconds["cpu"],
-               seconds_card=seconds["cuda"], **counts)
+    keys = ("nV", "nTri", "steps_after", "n_visc_its_after",
+            "n_Axb_its_after")
+    out = dict(nV_before=mesh_s.nV,
+               **{(k + "_after" if k in ("nV", "nTri") else k):
+                  [host[k], card[k]] for k in keys},
+               V_gap_m=v_gap, rel_gap=gaps, mesh_output_files=card["gens"],
+               remesh_s=card["remesh_s"], seconds_cpu=host["seconds"],
+               seconds_card=card["seconds"], cpu_wait_s=cpu_wait_s,
+               **counts)
     say("small_remesh", **out)
     assert same_mesh and v_gap <= 1e-6, out
-    assert rc.n_dt_ice - nc == rg.n_dt_ice - ng >= 3
-    assert sc.n_visc_its - vc == sg.n_visc_its - vg
-    assert sc.n_Axb_its - ac == sg.n_Axb_its - ag
+    assert host["steps_after"] == card["steps_after"] >= 3
+    assert host["n_visc_its_after"] == card["n_visc_its_after"]
+    assert host["n_Axb_its_after"] == card["n_Axb_its_after"]
     assert gaps["Hi"] < 1e-6 and gaps["u_vav_b"] < 1e-5 \
         and gaps["v_vav_b"] < 1e-5, gaps
-    for dev in runs:
-        assert gens[dev] == ["main_output_ANT_00001.nc",
-                             "main_output_ANT_00002.nc"], gens
+    for dev, run in runs.items():
+        assert run["gens"] == ["main_output_ANT_00001.nc",
+                               "main_output_ANT_00002.nc"], (dev, run)
     assert counts["diva_apply_launches"] > 0 \
         and counts["stack_spmv_launches"] > 0
     return out
@@ -1725,20 +1810,22 @@ def resume_snapshot(r):
                    for k in RESUME_FIELDS})
 
 
-def cpu_resume_snapshot(out_dir, t_cmp, snapshot_path, cfg="MP_RESUME",
-                        share="2"):
+def cpu_resume_snapshot(out_dir, t_cmp, snapshot_path,
+                        cfg="MP_RESUME_RUN"):
     """The f64 resume of MP_RESTART under the configuration named `cfg`
-    (MP_RESUME, or MP_ICE1R or MP_FAVIER with the retreat leg's start-up)
-    on the CPU (plain versions) to t_cmp, its snapshot and the first BMB
-    field saved to snapshot_path; run in a process of its own, on
-    1/`share` of the cores (the card's runs go on beside it)."""
+    (MP_RESUME_RUN, or MP_ICE1R or MP_FAVIER with the retreat leg's
+    start-up) on the CPU (plain versions) to t_cmp, its snapshot and the
+    first BMB field saved to snapshot_path; run in a process of its own
+    (the card's runs go on beside it), on one thread: the 632-vertex
+    mesh's tensors are below torch's grain for a parallel loop, so more
+    threads would only take cores from the card's host thread."""
     from ufemism2_tpu_torch.config import Config
-    torch.set_num_threads(max(1, (os.cpu_count() or 2) // int(share)))
+    torch.set_num_threads(1)
     C = Config(**dict(globals()[cfg], tpu_precision="f64"))
     t0 = time.perf_counter()
     r = resume_region(C, MP_RESTART, "cpu", out_dir)
     bmb0 = r.BMB.clone()
-    if cfg != "MP_RESUME":
+    if cfg != "MP_RESUME_RUN":
         ice1r_start(r)
     n0, axb0 = r.n_dt_ice, r.state.n_Axb_its
     with contextlib.redirect_stdout(sys.stderr):
@@ -1752,22 +1839,32 @@ def cpu_resume_snapshot(out_dir, t_cmp, snapshot_path, cfg="MP_RESUME",
     torch.save(snap, snapshot_path)
 
 
-def mismipplus_resume_phase(workdir):
+def start_resume_cpu(workdir):
+    """The CPU's f64 run that mismipplus_resume_phase holds the card to,
+    started in a process of its own: (process, the path of its result)."""
+    t_cmp = MP_RESUME_RUN["start_time_of_run"] + MP_CMP_YR
+    cpu_out = os.path.join(workdir, "resume_f64_cpu.pt")
+    return start_cpu_job("cpu_resume_snapshot",
+                         os.path.join(workdir, "resume_f64_cpu"),
+                         repr(t_cmp), cpu_out), cpu_out
+
+
+def mismipplus_resume_phase(workdir, cpu_job):
     """The JAX package's MISMIP+ 5 km spin-up state resumed on the card
-    (MP_RESUME: one coupling interval through run_to, outputs, restarts
+    (MP_RESUME_RUN: half a model year through run_to, outputs, restarts
     and remeshing on), in f32 and in f64. The f64 run is held to the same
     run on the CPU over its first MP_CMP_YR model years (equal steps and
     counts, fields within small_phase's gaps), and to a fresh region
     resumed from the port's own restart written halfway (equal steps and
     counts, fields within 1e-12 at the end). Beside it a third f64 run
     whose thickness starts 1e-15 (relative) away measures how far one
-    rounding carries by the halfway point on this state. Every output file
+    rounding carries by the end on this state. Every output file
     is read back through the port's ncio, without h5py."""
     from ufemism2_tpu_torch.config import Config
     from ufemism2_tpu_torch.io.ncio import NCFile
     from ufemism2_tpu_torch.main import program
-    t_start, t_end = MP_RESUME["start_time_of_run"], \
-        MP_RESUME["end_time_of_run"]
+    t_start, t_end = MP_RESUME_RUN["start_time_of_run"], \
+        MP_RESUME_RUN["end_time_of_run"]
     t_cmp, t_mid = t_start + MP_CMP_YR, 0.5 * (t_start + t_end)
 
     def gaps(a, b):
@@ -1775,16 +1872,14 @@ def mismipplus_resume_phase(workdir):
                 for k in RESUME_FIELDS}
 
     res, snaps = {}, {}
-    # the CPU's run goes in a process of its own, beside the card's runs
-    cpu_out = os.path.join(workdir, "resume_f64_cpu.pt")
-    cpu = start_cpu_job("cpu_resume_snapshot",
-                        os.path.join(workdir, "resume_f64_cpu"),
-                        repr(t_cmp), cpu_out)
+    # the CPU's run goes in a process of its own (start_resume_cpu),
+    # beside the card's runs
+    cpu, cpu_out = cpu_job
     try:
         zero_counts()
         for tag, prec in (("f32", "f32"), ("f64", "f64"),
                           ("f64_perturbed", "f64")):
-            C = Config(**dict(MP_RESUME, tpu_precision=prec))
+            C = Config(**dict(MP_RESUME_RUN, tpu_precision=prec))
             out_dir = os.path.join(workdir, f"resume_{tag}")
             r = resume_region(C, MP_RESTART, "cuda", out_dir)
             if tag == "f64_perturbed":
@@ -1802,12 +1897,11 @@ def mismipplus_resume_phase(workdir):
                     r.run_to(t_cmp)
                     snaps[tag] = resume_snapshot(r)
                     r.run_to(t_mid)
-                    snaps[tag + "_mid"] = resume_snapshot(r)
                     if tag == "f64":
                         shutil.copy(
                             os.path.join(out_dir, "restart_ANT_00001.nc"),
                             os.path.join(workdir, "restart_mid.nc"))
-                        r.run_to(t_end)
+                    r.run_to(t_end)
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
             s = r.state
@@ -1823,7 +1917,7 @@ def mismipplus_resume_phase(workdir):
                 n_mesh_updates=r.n_mesh_updates, nV=r.mesh.nV,
                 outputs=read_outputs(out_dir, len(r.scalars_history)))
         # a fresh region resumed from the f64 card run's halfway restart
-        C = Config(**dict(MP_RESUME, tpu_precision="f64"))
+        C = Config(**dict(MP_RESUME_RUN, tpu_precision="f64"))
         rr = resume_region(C, os.path.join(workdir, "restart_mid.nc"), "cuda",
                            os.path.join(workdir, "resume_from_mid"))
         n0 = rr.n_dt_ice
@@ -1845,7 +1939,8 @@ def mismipplus_resume_phase(workdir):
     assert abs(float(mid_restart.read("time")[0]) - t_mid) < 1e-9
     gaps_cpu = gaps(snaps["f64_cpu"], snaps["f64"])
     gaps_resumed = gaps(resume_snapshot(rr), resume_snapshot(ru))
-    gaps_perturbed = gaps(snaps["f64_perturbed_mid"], snaps["f64_mid"])
+    gaps_perturbed = gaps(resume_snapshot(res["f64_perturbed"]["region"]),
+                          resume_snapshot(ru))
     printed = {tag: {k: v for k, v in d.items() if k != "region"}
                for tag, d in res.items()}
     out = dict(restart=os.path.relpath(MP_RESTART), nV=res["f32"]["nV"],
@@ -1855,7 +1950,7 @@ def mismipplus_resume_phase(workdir):
                    for k in ("steps", "n_visc_its", "n_Axb_its")},
                    rel_gap=gaps_cpu, cpu_run=cpu_run,
                    cpu_wait_s=cpu_wait_s),
-               perturbed_1e15_rel_gap_at_mid=gaps_perturbed,
+               perturbed_1e15_rel_gap_at_end=gaps_perturbed,
                resumed_from_mid=dict(
                    steps=rr.n_dt_ice - n0, n_dt_ice=[rr.n_dt_ice,
                                                      ru.n_dt_ice],
@@ -1942,14 +2037,15 @@ def start_retreat_cpu(phase, cfg_name, workdir):
     cpu_out = os.path.join(workdir, f"{phase}_f64_cpu.pt")
     return start_cpu_job("cpu_resume_snapshot",
                          os.path.join(workdir, f"{phase}_f64_cpu"),
-                         repr(t_cmp), cpu_out, cfg_name, "4"), cpu_out
+                         repr(t_cmp), cpu_out, cfg_name), cpu_out
 
 
 def retreat_phase(phase, cfg_name, years, workdir, cpu_job):
     """MP_RESTART resumed under `cfg_name` (MP_ICE1R or MP_FAVIER) on the
     card: the retreat leg's start-up, then `years` model years in f32, one
-    run_to a year, the grounding line read on the westeast transect every
-    year, the kernels' launches counted around it; the same start in f64
+    run_to a year (the last at `years`), the grounding line read on the
+    westeast transect at each, the kernels' launches counted around it;
+    the same start in f64
     to MP_CMP_YR, held to the CPU's run (cpu_job, from start_retreat_cpu)
     in counts, in fields within small_phase's gaps and in the first BMB
     field within 1e-12. Every output file (the transect file among them,
@@ -1972,8 +2068,8 @@ def retreat_phase(phase, cfg_name, years, workdir, cpu_job):
         zero_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(sys.stderr):
-            for y in range(1, int(round(years)) + 1):
-                r.run_to(t_start + y)
+            for y in range(1, int(np.ceil(years)) + 1):
+                r.run_to(t_start + min(y, years))
                 x_GL.append(x_GL_westeast(r))
                 melt.append(melt_m3_per_yr(r))
         torch.cuda.synchronize()
@@ -2203,11 +2299,11 @@ def exp2_chain(base, legs, device, workdir, timed=False):
         fields
 
 
-def cpu_exp2_snapshot(workdir, snapshot_path, share="4"):
+def cpu_exp2_snapshot(workdir, snapshot_path):
     """SMALL_EXP2's chain on the CPU (plain versions), its numbers and
     fields saved to snapshot_path; small_berends_phase runs this in a
-    process of its own, on 1/`share` of the cores."""
-    torch.set_num_threads(max(1, (os.cpu_count() or 2) // int(share)))
+    process of its own, on one thread (as cpu_resume_snapshot)."""
+    torch.set_num_threads(1)
     t0 = time.perf_counter()
     numbers, metrics, _, fields = exp2_chain(SMALL_EXP2, SMALL_EXP2_LEGS,
                                              "cpu", workdir)
@@ -2243,7 +2339,7 @@ def start_small_berends_cpu(workdir):
     os.makedirs(d, exist_ok=True)
     cpu_out = os.path.join(d, "cpu.pt")
     return start_cpu_job("cpu_exp2_snapshot", os.path.join(d, "cpu"),
-                         cpu_out, "4"), cpu_out
+                         cpu_out), cpu_out
 
 
 def small_berends_phase(workdir, cpu_job):
@@ -4467,6 +4563,559 @@ def laddie_kernel_entry(nums, cases, steps, ant_hydro=None):
         "cases": cases, "steps": steps}
 
 
+# ---------------------------------------------------------------------------
+# Multi-device runs (A.19): the FULL configuration sharded over 2 and 4
+# ranks of one card, joined by gloo
+# ---------------------------------------------------------------------------
+
+MD_PS = (2, 4)                       # ranks, all on cuda:0, over gloo
+# f64 with thermodynamics (a step every 0.1 model year, so that the
+# window's one ice step is followed by one) and GMRES(300): at the schema's
+# GMRES(60) the block-Jacobi f64 solves on this mesh end at the
+# 2,000-iteration cap or by stagnation (the initial solve's four: 8,184
+# iterations, none converged, on the CPU), and where rounding ends each
+# of them moves the sharded step's count by an iteration from one
+# device's; at GMRES(300) every solve converges (3,813 iterations)
+MD_F64 = dict(FULL_THERMO, tpu_precision="f64", dt_thermodynamics=0.1,
+              tpu_stress_balance_krylov_restart=300)
+MD_F32 = FULL
+MD_WINDOW_YR = 0.1                   # the f64 window: one ice step
+MD_AFTER_REMESH_YR = 0.1             # f32, sharded on the new mesh
+MD_F32_YR = 0.2                      # the f32 window of P = 1, 2, 4
+MD_PROFILE_STEPS = 1                 # profiled after it (rank 0)
+MD_STEP_TOL = 1e-9                   # sharded against one device, f64
+MD_WINDOW_TOL = 1e-8                 # of the largest value, f64 window
+# the f32 window against P = 1: its solves end at their precision floor,
+# so the reduction order over ranks moves the velocities by a few per cent
+# and a margin vertex may keep or lose its 100 m of ice (on the CPU, over
+# 0.2 years: 3 vertices beyond 1 m); held: the ice volume and the mean
+# |dHi| against the largest Hi, both within 1e-3
+MD_F32_TOL = 1e-3
+MD_KERNEL_REPS = 20
+MD_DEVICE = "cuda:0"                 # every rank's device, and the P = 1 runs'
+MD_GATE_WAIT_S = 1500                # the longest a rank waits for the phase
+
+
+def md_sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def md_gather(x, group, n, dim=0):
+    """The ranks' blocks of x along `dim`, concatenated, first n rows."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(x) for _ in range(group.world)]
+    dist.all_gather(parts, x.contiguous(), group=group.group)
+    return torch.cat(parts, dim=dim).narrow(dim, 0, n)
+
+
+def md_sharded_kernels(md, md_loc, block, g, dtype, rnd):
+    """stack_spmv and diva_apply on this rank's extended block (random
+    operands from one seed, the same on every rank), gathered, against
+    the single-device kernel to the bit, and the plain versions on the
+    same operands: diva_apply's sharded plain version (its sums in one
+    written-out order) against the single-device one to the bit,
+    stack_spmv's (a torch reduction, whose order follows the tensor's
+    size) within the kernel cases' tolerance; the single-device kernel
+    against its plain version within that tolerance."""
+    from ufemism2_tpu_torch.ops import cuda_spmv
+    from ufemism2_tpu_torch.parallel import comm
+    dev, n = g.device, md.nTri
+    rng = np.random.default_rng(14)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    x = t(rng.standard_normal((n, 2)) * 300.0)
+    fields = (t(1e9 * (1.0 + rng.random(n))), t(1e4 * rng.standard_normal(n)),
+              t(1e4 * rng.standard_normal(n)), t(1e3 * rng.random(n)))
+    S, Sl = md.M2_stack, md_loc.M2_stack
+    tol = (1e-5 if dtype == torch.float32 else 1e-12)
+    out = {}
+    # the five-operator stack
+    y1 = S.apply(x, exact=not rnd)
+    y1p = cuda_spmv.stack_spmv_plain(S.cols, S.vals, x, rnd)
+    with comm.rank_ctx(g):
+        xb = block(x, "Tri")
+        n0 = cuda_spmv.launches
+        yk = md_gather(Sl.apply(xb, exact=not rnd), g, n, dim=1)
+        launched = cuda_spmv.launches - n0
+        xe = md_loc.ext_Tri(xb)
+        yp = md_gather(cuda_spmv.stack_spmv_plain(Sl.cols, Sl.vals, xe, rnd),
+                       g, n, dim=1)
+        ms = time_ms(lambda: Sl.apply(xb, exact=not rnd), MD_KERNEL_REPS, 3)
+    out["stack_spmv"] = dict(
+        n_rows_local=Sl.n_rows, n_cols_local=Sl.n_cols, K=Sl.K,
+        launches=launched, bit_equal_kernel=bool(torch.equal(yk, y1)),
+        bit_equal_plain=bool(torch.equal(yp, y1p)),
+        plain_vs_plain=float((yp - y1p).abs().max() / y1p.abs().max()),
+        kernel_vs_plain=float((y1 - y1p).abs().max()
+                              / y1p.abs().max()), tol=tol,
+        sharded_ms=ms)
+    # the DIVA operator
+    rows, rows_l = md.x("ssa_diva_rows"), md_loc.x("ssa_diva_rows")
+    A1 = cuda_spmv.DivaOperator(S.op, rows, *fields, round_x_bf16=rnd)
+    Al = cuda_spmv.DivaOperator(Sl.op, rows_l,
+                                *(block(f, "Tri") for f in fields),
+                                round_x_bf16=rnd, n_cols=Sl.n_cols,
+                                extend=md_loc.ext_Tri)
+    u, v = x[:, 0].contiguous(), x[:, 1].contiguous()
+    y1 = A1.flat(torch.cat([u, v]))
+    y1p = torch.cat(cuda_spmv.diva_apply_plain(
+        (S.cols, S.vals), rows, *A1.fields, u, v, rnd))
+    nL = Al.n
+    with comm.rank_ctx(g):
+        ub, vb = block(u, "Tri"), block(v, "Tri")
+        n0 = cuda_spmv.diva_launches
+        yl = Al.flat(torch.cat([ub, vb]))
+        launched = cuda_spmv.diva_launches - n0
+        yk = torch.cat([md_gather(yl[:nL], g, n), md_gather(yl[nL:], g, n)])
+        ext = md_loc.ext_Tri(torch.stack([ub, vb], dim=1))
+        pu, pv = cuda_spmv.diva_apply_plain(
+            (Sl.cols, Sl.vals), rows_l, *Al.fields, ext[:, 0], ext[:, 1], rnd)
+        yp = torch.cat([md_gather(pu, g, n), md_gather(pv, g, n)])
+        xl = torch.cat([ub, vb])
+        ms = time_ms(lambda: Al.flat(xl), MD_KERNEL_REPS, 3)
+    out["diva_apply"] = dict(
+        n_rows_local=nL, n_cols_local=Al.n_cols, launches=launched,
+        bit_equal_kernel=bool(torch.equal(yk, y1)),
+        bit_equal_plain=bool(torch.equal(yp, y1p)),
+        kernel_vs_plain=float((y1 - y1p).abs().max() / y1p.abs().max()),
+        tol=tol, sharded_ms=ms)
+    return out
+
+
+def md_window(region, t_end):
+    """run_to(t_end) with every kernel count set to 0 just before and
+    read just after, the stress-balance GMRES calls counted."""
+    with counted_gmres() as gm:
+        zero_counts()
+        s0 = region.state
+        n0, v0, a0, th0 = (region.n_dt_ice, s0.n_visc_its, s0.n_Axb_its,
+                           region.thermo_steps)
+        md_sync(region.device)
+        t0 = time.perf_counter()
+        s = region.run_to(t_end)
+        md_sync(region.device)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    axb = s.n_Axb_its - a0
+    return dict(steps=region.n_dt_ice - n0, n_visc_its=s.n_visc_its - v0,
+                n_Axb_its=axb, thermo_steps=region.thermo_steps - th0,
+                gmres_its=gm["its"], gmres_calls=gm["calls"], wall_s=wall,
+                ms_per_krylov_it=wall * 1e3 / max(axb, 1), **counts)
+
+
+@contextlib.contextmanager
+def md_ranged_collectives():
+    """Within the block every torch.distributed.all_reduce and all_gather
+    is one torch.profiler range ("md_all_reduce", "md_all_gather"), from
+    the call to its return (the gloo work and the wait for it)."""
+    import torch.distributed as dist
+    from torch.profiler import record_function
+    inner = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+    def ranged(name):
+        def call(*a, **kw):
+            with record_function(f"md_{name}"):
+                return inner[name](*a, **kw)
+        return call
+    for n in inner:
+        setattr(dist, n, ranged(n))
+    try:
+        yield
+    finally:
+        for n, f in inner.items():
+            setattr(dist, n, f)
+
+
+def md_profile(advance, device):
+    """advance() (a few more ice steps) under torch.profiler (the host's
+    activity: the collectives block the host): the wall, and the time in
+    the collectives (their ranges, md_ranged_collectives) with the
+    profiler's own gloo and c10d keys beside it."""
+    from torch.profiler import ProfilerActivity, profile
+    md_sync(device)
+    with md_ranged_collectives(), profile(
+            activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        advance()
+        md_sync(device)
+        wall = time.perf_counter() - t0
+    keys = {}
+    for e in prof.key_averages():
+        k = e.key.lower()
+        if any(w in k for w in ("gloo", "c10d", "md_all")):
+            keys[e.key] = (e.count, e.cpu_time_total / 1e6)
+    coll_s = sum(s for k, (_, s) in keys.items() if k.startswith("md_all"))
+    return dict(wall_s=wall, collectives_s=coll_s,
+                collectives_share=coll_s / wall if wall > 0 else 0.0,
+                keys={k: [c, round(s, 4)] for k, (c, s) in keys.items()})
+
+
+def md_run(D, region, s0, t_stop, thermo=False):
+    """The sharded steps of run_to's loop from the full state s0 to
+    t_stop (D.multistep, what run_to calls; the thermodynamics fused when
+    `thermo`), counted as md_window counts; returns (numbers, full state
+    at the end)."""
+    from ufemism2_tpu_torch.core.ice.pc import interpolate_ice_to_time
+    blk = D.pad_field_V
+    with counted_gmres() as gm:
+        zero_counts()
+        md_sync(D.device)
+        t0 = time.perf_counter()
+        sd, n, _, n_th, _ = D.multistep(
+            D.to_dist(s0), t_stop, region.C.dt_ice_max,
+            SMB=blk(region.SMB), BMB=blk(region.BMB), LMB=blk(region.LMB),
+            T_surf=blk(region._T_surf) if thermo else None,
+            t_th=region.t_thermo_next)
+        # the thickness at t_stop inside the last window, as run_to ends
+        s = interpolate_ice_to_time(D.from_dist(sd), t_stop)
+        md_sync(D.device)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    axb = s.n_Axb_its - s0.n_Axb_its
+    return dict(steps=n, n_visc_its=s.n_visc_its - s0.n_visc_its,
+                n_Axb_its=axb, thermo_steps=n_th, gmres_its=gm["its"],
+                gmres_calls=gm["calls"], wall_s=wall,
+                ms_per_krylov_it=wall * 1e3 / max(axb, 1), **counts), s
+
+
+def md_gate(gate):
+    """Wait, idle, for the phase's go (True) or the script's abort (False)
+    in the directory `gate`."""
+    t0 = time.time()
+    while time.time() - t0 < MD_GATE_WAIT_S:
+        if os.path.exists(os.path.join(gate, "abort")):
+            return False
+        if os.path.exists(os.path.join(gate, "go")):
+            return True
+        time.sleep(0.1)
+    return False
+
+
+def multidevice_rank(group, mesh, with_f64_step, gate):
+    """One rank of the multidevice phase (its own process; its output
+    goes to standard error). The group has max(MD_PS) ranks; each P of
+    MD_PS runs on its first P (the whole group's region through run_to,
+    the smaller groups through a ShardedModel of that region over a
+    subgroup, from the same state), the smaller P first while the other
+    ranks wait. The ranks start ahead of the phase (multidevice_start)
+    and wait, idle, for its go in the directory `gate`. f32: the kernels
+    under sharding, the short window and the
+    collectives' share profiled after it. f64: the kernels under sharding
+    (on the mesh data alone); with `with_f64_step` also an f64 region with
+    thermodynamics and a window of one step with the thermodynamics step
+    fused, the step held against the same step on one device (this rank's
+    own, from the same state and forcing) and the window's end against
+    that step followed by the thermodynamics step on one device. Last, on
+    the f32 region, a forced update_mesh and a sharded step on the new
+    mesh."""
+    sys.stdout = sys.stderr
+    start_epoch = time.time()
+    if not md_gate(gate):
+        return {}
+    import torch.distributed as dist
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.core.ice.pc import interpolate_ice_to_time
+    from ufemism2_tpu_torch.core.ice.ssadiva import register_ssadiva_static
+    from ufemism2_tpu_torch.core.mesh_data import build_mesh_data
+    from ufemism2_tpu_torch.main.region import ModelRegion
+    from ufemism2_tpu_torch.parallel.dist import (ShardedModel,
+                                                  build_dist_md)
+    from ufemism2_tpu_torch.parallel.sharding import RankGroup
+    world, rank, dev = group.world, group.rank, group.device
+    T = time.perf_counter()
+    subs = {P: group.group if P == world
+            else dist.new_group(list(range(P))) for P in MD_PS}
+    mine = sorted(P for P in MD_PS if rank < P)
+    rgs = {P: RankGroup(subs[P], rank, P, dev) for P in mine}
+    out = {P: {} for P in mine}
+
+    def sharded(region):
+        """This rank's ShardedModel of `region` for each of its P."""
+        return {P: region._dist if P == world else ShardedModel(
+            region.C, region, P, rgs[P]) for P in mine}
+
+    def in_turn(fn):
+        """fn(P) for each P of MD_PS, the smaller first, on its ranks."""
+        for P in sorted(MD_PS):
+            dist.barrier(group=group.group)
+            if rank < P:
+                fn(P)
+        dist.barrier(group=group.group)
+
+    # f32: construction, kernels, the timed windows and their profiles
+    t0 = time.perf_counter()
+    r32 = ModelRegion(Config(**MD_F32, tpu_n_devices=world), "ANT",
+                      mesh=mesh, device=dev)
+    md_sync(dev)
+    f32_construct_s = time.perf_counter() - t0
+    Ds, s0 = sharded(r32), r32.state
+    for P in mine:
+        out[P]["kernels_f32"] = md_sharded_kernels(
+            r32.md, Ds[P].md, Ds[P]._block, rgs[P], torch.float32, True)
+        out[P]["halo_stats"] = Ds[P].halo_stats()
+
+    def f32_window(P):
+        if P == world:
+            w, s = md_window(r32, MD_F32_YR), r32.state
+            prof = md_profile(lambda: r32.run_to(
+                r32.time + MD_PROFILE_STEPS * s.dt_ice * 1.05), dev)
+        else:
+            w, s = md_run(Ds[P], r32, s0, MD_F32_YR)
+            prof = md_profile(lambda: md_run(
+                Ds[P], r32, s, s.t_Hi_next + MD_PROFILE_STEPS * s.dt_ice
+                * 1.05), dev)
+        w["Hi"] = s.Hi.cpu().numpy() if rank == 0 else None
+        w["volume"] = float((s.Hi.double() * r32.md.A.double()).sum())
+        out[P].update(f32_window=w, f32_profile=prof if rank == 0 else None,
+                      f32_construct_s=f32_construct_s)
+    in_turn(f32_window)
+
+    # f64: the kernels on the mesh data alone
+    C64 = Config(**MD_F64)
+    md64 = build_mesh_data(mesh, dtype=torch.float64, device=dev)
+    register_ssadiva_static(C64, mesh, md64)
+    for P in mine:
+        dm = build_dist_md(mesh, md64, P)
+        nL = {sp: dm.spaces[sp].nL for sp in dm.spaces}
+
+        def block(x, sp, nL=nL):
+            b = x.new_zeros((nL[sp],) + tuple(x.shape[1:]))
+            part = x[rank * nL[sp]:(rank + 1) * nL[sp]]
+            b[:part.shape[0]] = part
+            return b
+        out[P]["kernels_f64"] = md_sharded_kernels(
+            md64, dm.local(rank, dev), block, rgs[P], torch.float64, False)
+    del md64
+    if not with_f64_step:
+        return md_remesh(r32, sharded, in_turn, dev, out, mine, T,
+                         start_epoch)
+
+    # f64: the step and the window with the thermodynamics fused
+    t0 = time.perf_counter()
+    r = ModelRegion(Config(**MD_F64, tpu_n_devices=world), "ANT", mesh=mesh,
+                    device=dev)
+    md_sync(dev)
+    f64_construct_s = time.perf_counter() - t0
+    Ds, s0 = sharded(r), r.state
+    # one device: the window's step and thermodynamics step
+    s1 = r.pc_step(r.md, s0, r.C.dt_ice_max, SMB=r.SMB, BMB=r.BMB,
+                   LMB=r.LMB)
+    Ti1, _ = r._thermo_step(r.md, interpolate_ice_to_time(
+        s1, r.t_thermo_next), r._T_surf, r.SMB, r.BMB)
+    ref = dict(interpolate_ice_to_time(s1, MD_WINDOW_YR).__dict__, Ti=Ti1)
+    gap = lambda a, b: float((a - b).abs().max()
+                             / a.abs().max().clamp(min=1e-30))
+
+    def f64_window(P):
+        if P == world:
+            w, s2 = md_window(r, MD_WINDOW_YR), r.state
+        else:
+            w, s2 = md_run(Ds[P], r, s0, MD_WINDOW_YR, thermo=True)
+        out[P]["f64_step"] = dict(
+            counts_single=(s1.n_visc_its, s1.n_Axb_its),
+            counts_sharded=(s2.n_visc_its, s2.n_Axb_its),
+            dt_single=s1.dt_ice, dt_sharded=s2.dt_ice,
+            gaps={k: gap(getattr(s1, k), getattr(s2, k))
+                  for k in ("Hi_next", "u_vav_b", "v_vav_b", "u_3D_b")},
+            masks_equal=bool(torch.equal(s1.mask, s2.mask)
+                             and torch.equal(s1.mask_grounded_ice,
+                                             s2.mask_grounded_ice)))
+        w["gaps"] = {k: gap(ref[k], getattr(s2, k))
+                     for k in ("Hi", "Ti", "u_vav_b")}
+        w["reference_steps"] = 1 if s1.t_Hi_next >= MD_WINDOW_YR - 1e-9 \
+            else 0
+        out[P].update(f64_window=w, f64_construct_s=f64_construct_s)
+    in_turn(f64_window)
+    del r, Ds
+    return md_remesh(r32, sharded, in_turn, dev, out, mine, T, start_epoch)
+
+
+def md_remesh(r32, sharded, in_turn, dev, out, mine, T, start_epoch):
+    """The end of multidevice_rank: the f32 region remeshed, then a
+    sharded step on the new mesh for each P."""
+    world = r32._dist.group.world
+    t0 = time.perf_counter()
+    r32.update_mesh()
+    remesh_s = time.perf_counter() - t0
+    Ds, s_rm = sharded(r32), r32.state
+
+    def after_remesh(P):
+        if P == world:
+            rm, s = md_window(r32, r32.time + MD_AFTER_REMESH_YR), r32.state
+        else:
+            rm, s = md_run(Ds[P], r32, s_rm, r32.time + MD_AFTER_REMESH_YR)
+        rm.update(nV=r32.mesh.nV, nTri=r32.mesh.nTri,
+                  finite=check_state(s, dev.type) > 0,
+                  Hi_min=float(s.Hi.min()), Hi_max=float(s.Hi.max()))
+        out[P].update(after_remesh=rm, remesh_s=remesh_s)
+    in_turn(after_remesh)
+    for P in mine:
+        out[P].update(seconds=time.perf_counter() - T,
+                      start_epoch=start_epoch, end_epoch=time.time())
+    return out
+
+
+def multidevice_start(mesh, with_f64_step):
+    """Start the phase's max(MD_PS) ranks now, so that their processes'
+    start-up (imports, CUDA contexts, the process group) goes on beside
+    the phases before it; they wait, idle, for multidevice_phase's go.
+    multidevice_stop must follow, whatever happens in between."""
+    from ufemism2_tpu_torch.parallel.launch import spawn
+    gate = tempfile.TemporaryDirectory()
+    pool = ThreadPoolExecutor(1)
+    epoch0 = time.time()
+    job = pool.submit(spawn, multidevice_rank, max(MD_PS), "gloo",
+                      [MD_DEVICE] * max(MD_PS),
+                      args=(mesh, with_f64_step, gate.name),
+                      timeout_s=MD_GATE_WAIT_S)
+    return dict(mesh=mesh, with_f64_step=with_f64_step, gate=gate, pool=pool,
+                job=job, epoch0=epoch0)
+
+
+def multidevice_stop(md):
+    """Release the ranks (with an abort if the phase never began) and join
+    them."""
+    gate = md["gate"].name
+    if not os.path.exists(os.path.join(gate, "go")):
+        open(os.path.join(gate, "abort"), "w").close()
+    try:
+        md["job"].result()
+    except Exception:          # raised already where the phase reads it
+        pass
+    md["pool"].shutdown()
+    md["gate"].cleanup()
+
+
+def multidevice_phase(md):
+    """The FULL configuration over P = 2 and 4 gloo ranks on the one card
+    (every collective staged through the host: what one card pays for the
+    run mode, not a multi-GPU scaling figure), against the single-device
+    runs of the same windows; the f64 step and window only with
+    `with_f64_step` (--multidevice-only: they take the ranks about 90 s
+    more, the f64 region's cold initial solve most of it). Returns the
+    ranks' summed kernel launches on the sharded paths and the
+    kernel-under-sharding records. `md` is multidevice_start's."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.main.region import ModelRegion
+    mesh, with_f64_step = md["mesh"], md["with_f64_step"]
+    t_phase = time.perf_counter()
+    # P = 1: the f32 window on one device
+    r = ModelRegion(Config(**MD_F32), "ANT", mesh=mesh, device=MD_DEVICE)
+    f32 = {1: md_window(r, MD_F32_YR)}
+    Hi32 = r.state.Hi.double()
+    vol32 = float((Hi32 * r.md.A.double()).sum())
+    del r
+    say("multidevice_reference", f32_window=f32[1])
+
+    # one group of max(MD_PS) ranks, started ahead: every P on its first P
+    # ranks, in turn (two groups at once share the card's time slices and
+    # run slower than one after the other, and every process costs its
+    # start-up)
+    t0 = time.perf_counter()
+    open(os.path.join(md["gate"].name, "go"), "w").close()
+    all_runs, epoch0 = md["job"].result(), md["epoch0"]
+    spawn_s, epoch1 = time.perf_counter() - t0, time.time()
+    launches, cases = {}, []
+    for P in MD_PS:
+        runs = [x[P] for x in all_runs[:P]]
+        r0 = runs[0]
+        # f64 step, and window with the thermodynamics fused, against one
+        # device
+        st, w = r0.get("f64_step"), r0.get("f64_window")
+        ok_step = not with_f64_step or all(
+            x["f64_step"]["counts_single"] == x["f64_step"]["counts_sharded"]
+            and x["f64_step"]["masks_equal"]
+            and max(x["f64_step"]["gaps"].values()) <= MD_STEP_TOL
+            for x in runs)
+        ok_window = not with_f64_step or all(
+            x["f64_window"]["steps"] == x["f64_window"]["reference_steps"]
+            == 1 and x["f64_window"]["thermo_steps"] == 1
+            and max(x["f64_window"]["gaps"].values()) <= MD_WINDOW_TOL
+            for x in runs)
+        rm = r0["after_remesh"]
+        ok_remesh = all(x["after_remesh"]["finite"]
+                        and x["after_remesh"]["Hi_min"] >= 0.0
+                        and x["after_remesh"]["nV"] == rm["nV"]
+                        and x["after_remesh"]["steps"] >= 1 for x in runs)
+        kern = {prec: {name: {k: [x[prec][name][k] for x in runs]
+                              for k in ("bit_equal_kernel", "bit_equal_plain",
+                                        "launches", "kernel_vs_plain",
+                                        "sharded_ms")
+                              + (("plain_vs_plain",)
+                                 if name == "stack_spmv" else ())}
+                       for name in ("stack_spmv", "diva_apply")}
+                for prec in ("kernels_f64", "kernels_f32")}
+        ok_kern = all(all(v["bit_equal_kernel"])
+                      and (all(v["bit_equal_plain"]) or name == "stack_spmv"
+                           and all(e <= runs[0][prec][name]["tol"]
+                                   for e in v["plain_vs_plain"]))
+                      and all(e <= runs[0][prec][name]["tol"]
+                              for e in v["kernel_vs_plain"])
+                      and all(n == 1 for n in v["launches"])
+                      for prec, d in kern.items() for name, v in d.items())
+        # the paths' launches, every rank's summed; the rules of the
+        # single-device paths hold on each rank
+        paths = {"f32_window": "f32", "after_remesh": "f32_after_remesh"}
+        if with_f64_step:
+            paths["f64_window"] = "f64"
+        for key, tag in paths.items():
+            for name in ("stack_spmv_launches", "diva_apply_launches",
+                         "heat_columns_launches"):
+                launches.setdefault(name, {})[f"multidevice_{tag}_P{P}"] = \
+                    sum(x[key][name] for x in runs)
+        ok_launch = all(
+            x[k]["diva_apply_launches"] == x[k]["gmres_its"]
+            + x[k]["gmres_calls"] and x[k]["gmres_its"] > 0
+            and x[k]["stack_spmv_launches"] > 16 * x[k]["gmres_calls"]
+            for x in runs for k in paths) and (not with_f64_step or all(
+                x["f64_window"]["heat_columns_launches"]
+                == x["f64_window"]["thermo_steps"] > 0 for x in runs))
+        w32 = r0["f32_window"]
+        f32[P] = {k: w32[k] for k in w32 if k != "Hi"}
+        dHi = (torch.as_tensor(w32["Hi"], device=MD_DEVICE).double()
+               - Hi32).abs()
+        f32_gaps = dict(volume=abs(w32["volume"] - vol32) / vol32,
+                        mean_abs_Hi=float(dHi.mean() / Hi32.abs().max()),
+                        max_abs_Hi=float(dHi.max() / Hi32.abs().max()),
+                        vertices_over_1m=int((dHi > 1.0).sum()))
+        ok_f32 = (f32_gaps["volume"] <= MD_F32_TOL
+                  and f32_gaps["mean_abs_Hi"] <= MD_F32_TOL)
+        say(f"multidevice_P{P}", ranks=P, backend="gloo", devices=MD_DEVICE,
+            spawn_s=spawn_s, rank_seconds=[x["seconds"] for x in runs],
+            start_up_s=max(x["start_epoch"] for x in runs) - epoch0,
+            tear_down_s=epoch1 - min(x["end_epoch"] for x in runs),
+            f64_construct_s=r0.get("f64_construct_s"),
+            f32_construct_s=r0["f32_construct_s"],
+            f64_step=st, f64_window=w,
+            remesh_s=r0["remesh_s"], after_remesh=rm,
+            kernels=kern, f32_window=f32[P], f32_gaps_vs_P1=f32_gaps,
+            f32_profile=r0["f32_profile"], halo_stats=r0["halo_stats"],
+            ok=dict(step=ok_step, window=ok_window, remesh=ok_remesh,
+                    kernels=ok_kern, launches=ok_launch, f32=ok_f32))
+        if not (ok_step and ok_window and ok_remesh and ok_kern and ok_launch
+                and ok_f32):
+            raise SystemExit(f"multidevice over {P} ranks failed: step "
+                             f"{ok_step}, window {ok_window}, remesh "
+                             f"{ok_remesh}, kernels {ok_kern}, launches "
+                             f"{ok_launch}, f32 {ok_f32}")
+        for prec, d in kern.items():
+            for name, v in d.items():
+                cases.append(dict(case=f"{name}_sharded_P{P}_{prec[8:]}",
+                                  kernel=name, ranks=P,
+                                  **{k: v[k] for k in v},
+                                  n_rows_local=runs[0][prec][name][
+                                      "n_rows_local"],
+                                  n_cols_local=runs[0][prec][name][
+                                      "n_cols_local"]))
+    say("multidevice", seconds=time.perf_counter() - t_phase,
+        f32_by_ranks={P: dict(n_Axb_its=v["n_Axb_its"],
+                              n_visc_its=v["n_visc_its"], steps=v["steps"],
+                              wall_s=v["wall_s"],
+                              ms_per_krylov_it=v["ms_per_krylov_it"])
+                      for P, v in f32.items()})
+    return launches, cases
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
@@ -4479,6 +5128,9 @@ def main():
     ap.add_argument("--laddie-only", action="store_true",
                     help="build the kernels and run the LADDIE slice's "
                          "phases 29-33 alone (no result line)")
+    ap.add_argument("--multidevice-only", action="store_true",
+                    help="build the kernels and the 8 km mesh and run the "
+                         "multidevice phase alone (no result line)")
     ap.add_argument("--ant-init-years", type=float, default=ANT_INIT_YEARS,
                     metavar="Y", help="antarctica_init's window in model "
                     "years (pins held only at the default)")
@@ -4501,7 +5153,9 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     card_line = smi.splitlines()[0]
     say("device", card=card_line, torch=torch.__version__,
-        cuda=torch.version.cuda)
+        cuda=torch.version.cuda, cpu_count=os.cpu_count(),
+        cpus_usable=len(os.sched_getaffinity(0)),
+        torch_threads=torch.get_num_threads())
 
     # -- 2. build: one nvcc per source, all started together ---------------
     t0 = time.perf_counter()
@@ -4529,6 +5183,18 @@ def main():
             nums, (cases, steps) = laddie_phases(workdir)
             say("laddie_kernel_entry", **laddie_kernel_entry(nums, cases,
                                                              steps))
+        say("done", seconds=time.perf_counter() - t_start)
+        return 0
+    if args.multidevice_only:
+        from ufemism2_tpu_torch.mesh.operators import \
+            build_all_matrix_operators
+        mesh = build_mesh_from_config(Config(**FULL), "ANT")
+        mesh.operators = build_all_matrix_operators(mesh)
+        md = multidevice_start(mesh, with_f64_step=True)
+        try:
+            multidevice_phase(md)
+        finally:
+            multidevice_stop(md)
         say("done", seconds=time.perf_counter() - t_start)
         return 0
 
@@ -4619,70 +5285,82 @@ def main():
             f"{'_neg' if inf < 0 else ''}",
             [a.cuda() if isinstance(a, torch.Tensor) else a for a in edge]))
 
-    # -- 5. small configuration: card (kernels) against CPU (plain) --------
-    mesh_s_small = build_mesh_from_config(Config(**SMALL), "ANT")
-    small_phase("small", Config(**SMALL), mesh_s_small)
-    small_phase("small_thermo", Config(**SMALL_THERMO), mesh_s_small)
+    # -- the multidevice phase's ranks start here: their start-up goes on
+    # beside phases 5-9, and they wait, idle, for 9b
+    md = multidevice_start(mesh, with_f64_step=False)
+    try:
+        # -- 5. small configuration: card (kernels) against CPU (plain) ----
+        mesh_s_small = build_mesh_from_config(Config(**SMALL), "ANT")
+        small_phase("small", Config(**SMALL), mesh_s_small)
+        small_phase("small_thermo", Config(**SMALL_THERMO), mesh_s_small)
+        with tempfile.TemporaryDirectory() as workdir:
+            small_mismipplus_phase(workdir)
+
+        # -- 6. main path at full width ------------------------------------
+        region, state, main = drive_full(C, mesh, "")
+        say("main_path", mesh_build_s=mesh_s, **main)
+        init_its, w_axb, x_GL_km = (main["initial_gmres_its"],
+                                    main["n_Axb_its"], main["x_GL_km"])
+        assert main["heat_columns_launches"] == 0
+        assert (init_its, w_axb) == (INIT_GMRES_ITS, WINDOW_AXB_ITS) \
+            and abs(x_GL_km - X_GL_KM) < 0.01, \
+            (f"the f32 trajectory moved: {init_its} initial GMRES "
+             f"iterations, {w_axb} Krylov iterations in the window, x_GL "
+             f"{x_GL_km:.3f} km "
+             f"(expected {INIT_GMRES_ITS}, {WINDOW_AXB_ITS}, {X_GL_KM}): the "
+             "rounding or the summation order of the operator changed")
+
+        # -- 7. profile (optional) -----------------------------------------
+        if args.profile > 0:
+            profile_steps(region, args.profile, args.profile_out)
+
+        # -- 8. thermodynamics path at full width, 9. Halfar dome (SIA) ----
+        th, hot_heat = thermo_path(Config(**FULL_THERMO), mesh)
+        halfar, halfar_heat = halfar_phase()
+        heat_cases += [hot_heat, halfar_heat]
+
+        # -- 9b. multi-device runs: the 8 km path over 2 and 4 gloo ranks -----
+        md_launches, md_cases = multidevice_phase(md)
+    finally:
+        multidevice_stop(md)
+
+    # -- 10. MISMIP+ through the program's entry point, 11. preconditioners,
+    # 12. remeshing at full width, 13. small_remesh, 14. the MISMIP+
+    # spin-up resumed, 15. Berends et al. (2023) experiment II, 16. MISMIP+
+    # ice1r, 17. Favier et al. (2019) melt, 18. the experiment II chain at
+    # 40 km card against CPU, 19. thermodynamics and SMB from files; the
+    # CPU runs that 13, 14, 16, 17 and 18 are held to go on beside the
+    # card's runs from the start of 10, one thread each
     with tempfile.TemporaryDirectory() as workdir:
-        small_mismipplus_phase(workdir)
-
-    # -- 6. main path at full width ----------------------------------------
-    region, state, main = drive_full(C, mesh, "")
-    say("main_path", mesh_build_s=mesh_s, **main)
-    init_its, w_axb, x_GL_km = (main["initial_gmres_its"], main["n_Axb_its"],
-                                main["x_GL_km"])
-    assert main["heat_columns_launches"] == 0
-    assert (init_its, w_axb) == (INIT_GMRES_ITS, WINDOW_AXB_ITS) \
-        and abs(x_GL_km - X_GL_KM) < 0.01, \
-        (f"the f32 trajectory moved: {init_its} initial GMRES iterations, "
-         f"{w_axb} Krylov iterations in the window, x_GL {x_GL_km:.3f} km "
-         f"(expected {INIT_GMRES_ITS}, {WINDOW_AXB_ITS}, {X_GL_KM}): the "
-         "rounding or the summation order of the operator changed")
-
-    # -- 7. profile (optional) ---------------------------------------------
-    if args.profile > 0:
-        profile_steps(region, args.profile, args.profile_out)
-
-    # -- 8. thermodynamics path at full width, 9. Halfar dome (SIA) --------
-    th, hot_heat = thermo_path(Config(**FULL_THERMO), mesh)
-    halfar, halfar_heat = halfar_phase()
-    heat_cases += [hot_heat, halfar_heat]
-
-    # -- 10. MISMIP+ through the program's entry point, 11. preconditioners
-    with tempfile.TemporaryDirectory() as workdir:
-        mp_region, mp_last, mp = mismipplus_phase(workdir)
-    mp_A = mp_last["A"]
-    diva_cases.append(diva_check("diva_apply_mismipplus_last_apply", mp_A,
-                                 torch.cat(mp_last["x"])))
-    mp_precond = precond_solves(mp_region, mp_last)
-
-    # -- 12. remeshing at full width, 13. small_remesh, 14. the MISMIP+
-    # spin-up resumed
-    rm, rm_diva, rm_stack = remesh_phase(mesh)
-    diva_cases.append(rm_diva)
-    cases.append(rm_stack)
-    with tempfile.TemporaryDirectory() as workdir:
-        small_remesh_phase(workdir, mesh_s_small)
-        mpr = mismipplus_resume_phase(workdir)
-
-    # -- 15. Berends et al. (2023) experiment II, 16. MISMIP+ ice1r, 17.
-    # Favier et al. (2019) melt, 18. the experiment II chain at 40 km card
-    # against CPU, 19. thermodynamics and SMB from files; the CPU runs that
-    # 16, 17 and 18 are held to go on beside the card's runs from the start
-    with tempfile.TemporaryDirectory() as workdir:
-        jobs = [start_retreat_cpu("mismipplus_ice1r", "MP_ICE1R", workdir),
-                start_retreat_cpu("mismipplus_favier", "MP_FAVIER", workdir),
-                start_small_berends_cpu(workdir)]
+        jobs = dict(
+            small_remesh=start_small_remesh_cpu(workdir),
+            resume=start_resume_cpu(workdir),
+            ice1r=start_retreat_cpu("mismipplus_ice1r", "MP_ICE1R", workdir),
+            favier=start_retreat_cpu("mismipplus_favier", "MP_FAVIER",
+                                     workdir),
+            small_berends=start_small_berends_cpu(workdir))
         try:
+            mp_dir = os.path.join(workdir, "mismipplus")
+            os.makedirs(mp_dir)
+            mp_region, mp_last, mp = mismipplus_phase(mp_dir)
+            mp_A = mp_last["A"]
+            diva_cases.append(diva_check("diva_apply_mismipplus_last_apply",
+                                         mp_A, torch.cat(mp_last["x"])))
+            mp_precond = precond_solves(mp_region, mp_last)
+            rm, rm_diva, rm_stack = remesh_phase(mesh)
+            diva_cases.append(rm_diva)
+            cases.append(rm_stack)
+            small_remesh_phase(workdir, mesh_s_small, jobs["small_remesh"])
+            mpr = mismipplus_resume_phase(workdir, jobs["resume"])
             ex2 = berends_exp2_phase(workdir)
             ir = retreat_phase("mismipplus_ice1r", "MP_ICE1R", IR_YEARS,
-                               workdir, jobs[0])
-            fav = retreat_phase("mismipplus_favier", "MP_FAVIER", 1.0,
-                                workdir, jobs[1])
-            small_berends_phase(workdir, jobs[2])
+                               workdir, jobs["ice1r"])
+            fav = retreat_phase("mismipplus_favier", "MP_FAVIER",
+                                FAVIER_YEARS, workdir, jobs["favier"])
+            small_berends_phase(workdir, jobs["small_berends"])
             stf = small_thermo_files_phase(workdir, mesh_s_small)
         finally:
-            for proc, _ in jobs:
+            for proc, _ in jobs.values():
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
@@ -4787,6 +5465,11 @@ def main():
         if i < 2:
             by_path["mismipplus_iceocean1r"] = lad_nums["iceocean1r"][key]
         by_path["antarctica_hydro"] = ant_hydro[key]
+    for i, key in ((0, "stack_spmv_launches"), (1, "diva_apply_launches"),
+                   (2, "heat_columns_launches")):
+        kernels[i]["launches_by_path"].update(md_launches[key])
+    cases += [c for c in md_cases if c["kernel"] == "stack_spmv"]
+    diva_cases += [c for c in md_cases if c["kernel"] == "diva_apply"]
     kernels.append(laddie_kernel_entry(lad_nums, lad_cases, lad_steps))
     print(json.dumps({"kernels": kernels + ih_kernels}), flush=True)
     print(card_line, flush=True)

@@ -130,12 +130,13 @@ def test_mismipplus_region_with_laddie():
 ], ids=["laddie", "reconstructed", "particles", "Salle2025", "ROIs"])
 def test_slice_accepts_ported_choices(over):
     """The choices this slice ported build a region (which raised
-    NotImplementedError before); more than one device still does not."""
+    NotImplementedError before); more than one device outside a process
+    group of that world size raises, naming tpu_n_devices."""
     _, Ct = mismipplus_configs(**over)
     Cj, _ = mismipplus_configs()
     _, mt = build_meshes_for(Cj)
     r = ModelRegion(Ct, "ANT", mesh=mt, device="cpu")
     assert torch.isfinite(r.SMB).all() and torch.isfinite(r.BMB).all()
     _, Ct = mismipplus_configs(tpu_n_devices=2, **over)
-    with pytest.raises(NotImplementedError, match="tpu_n_devices"):
+    with pytest.raises(RuntimeError, match="tpu_n_devices = 2 needs"):
         ModelRegion(Ct, "ANT", mesh=mt, device="cpu")

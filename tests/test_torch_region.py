@@ -136,8 +136,13 @@ def test_default_device_is_the_card(env):
     (dict(tpu_n_devices=4), "tpu_n_devices"),
 ])
 def test_unported_choices_raise_by_name(env, over, word):
+    """Each choice the port lacks raises NotImplementedError naming it;
+    tpu_n_devices > 1 is ported, and outside a process group of that
+    world size raises RuntimeError naming it (no fallback to one
+    device)."""
     _, Ct = configs(**over)
-    with pytest.raises(NotImplementedError, match=word):
+    exc = RuntimeError if "tpu_n_devices" in over else NotImplementedError
+    with pytest.raises(exc, match=word):
         ModelRegion(Ct, "ANT", mesh=env.mesh_t, device="cpu")
 
 

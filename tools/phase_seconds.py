@@ -19,6 +19,7 @@ GROUPS = (
         "mesh", "small", "small_thermo", "small_mismipplus", "initial_solve",
         "warm_up", "main_path", "thermo_initial_solve", "thermo_warm_up",
         "thermo_path", "halfar", "precond_solve")),
+    ("multidevice (2 and 4 gloo ranks)", ("multidevice",)),
     ("MISMIP+, remesh, resume", ("mismipplus", "remesh", "small_remesh",
                                  "mismipplus_resume")),
     ("experiment II, ice1r, Favier, files", (

@@ -31,7 +31,7 @@ def is_floating(Hi, Hb, SL):
 
 def _any_nbr(md: MeshData, flag):
     """True where any (real) neighbour satisfies flag [nV]->[nV]."""
-    return (flag[md.C] & md.mask_C).any(dim=1)
+    return (md.ext_V(flag)[md.C] & md.mask_C).any(dim=1)
 
 
 def determine_masks(md: MeshData, Hi, Hb, SL):

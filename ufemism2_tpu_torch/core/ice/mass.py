@@ -20,8 +20,8 @@ from .geometry import ice_surface_elevation, Hi_from_Hb_Hs_and_SL
 def _u_perp(md: MeshData, u_vav_b, v_vav_b):
     u_c = map_b_to_c(md, u_vav_b)
     v_c = map_b_to_c(md, v_vav_b)
-    u_e = u_c[md.VE]              # [nV, K]
-    v_e = v_c[md.VE]
+    u_e = md.ext_E(u_c)[md.VE]    # [nV, K]
+    v_e = md.ext_E(v_c)[md.VE]
     return u_e * md.D_x / md.D + v_e * md.D_y / md.D
 
 
@@ -35,8 +35,8 @@ def calc_divQ_upwind(md: MeshData, Hi, u_vav_b, v_vav_b, fraction_margin):
     u_perp = _u_perp(md, u_vav_b, v_vav_b)
 
     fm_i = fraction_margin[:, None]
-    fm_j = torch.where(md.mask_C, fraction_margin[md.C], 0.0)
-    Hi_j = torch.where(md.mask_C, Hi[md.C], 0.0)
+    fm_j = torch.where(md.mask_C, md.ext_V(fraction_margin)[md.C], 0.0)
+    Hi_j = torch.where(md.mask_C, md.ext_V(Hi)[md.C], 0.0)
 
     LcA = md.Cw / md.A[:, None]
     out_coeff = torch.where((fm_i >= 1.0) & md.mask_C,
@@ -83,18 +83,18 @@ def apply_ice_thickness_BC_explicit(C, md: MeshData, mask_noice, Hb, SL,
 
     Hs = ice_surface_elevation(Hi_out, Hb, SL)
     interior = (md.VBI == 0) & ~mask_noice
-    nbr_int = interior[md.C] & md.mask_C
+    nbr_int = md.ext_V(interior)[md.C] & md.mask_C
     n_int = nbr_int.sum(dim=1)
 
     # first pass: mean Hs over interior neighbours
-    Hs_nbr = torch.where(nbr_int, Hs[md.C], 0.0)
+    Hs_nbr = torch.where(nbr_int, md.ext_V(Hs)[md.C], 0.0)
     Hs_av1 = Hs_nbr.sum(1) / torch.clamp(n_int, min=1)
     pass1 = bc_inf & (n_int > 0)
     Hs1 = torch.where(pass1, torch.maximum(Hb, Hs_av1), Hs)
     Hi1 = torch.where(pass1, Hi_from_Hb_Hs_and_SL(Hb, Hs1, SL), Hi_out)
 
     # second pass: border vertices with no interior neighbours use all nbrs
-    Hs_all = torch.where(md.mask_C, Hs1[md.C], 0.0)
+    Hs_all = torch.where(md.mask_C, md.ext_V(Hs1)[md.C], 0.0)
     nC = md.mask_C.sum(dim=1)
     Hs_av2 = Hs_all.sum(1) / torch.clamp(nC, min=1)
     pass2 = bc_inf & (n_int == 0)
@@ -130,10 +130,10 @@ def calc_critical_timestep_adv(C, md: MeshData, Hi, mask_floating,
     Returns a Python float (time bookkeeping lives on the host, in f64)."""
     u_c = map_b_to_c(md, u_vav_b)
     v_c = map_b_to_c(md, v_vav_b)
-    Hi_e = Hi[md.EV]               # [nE,2]
+    Hi_e = md.ext_V(Hi)[md.EV]     # [nE,2]
     has_ice = (Hi_e > 0.0).all(dim=1)
     if C.do_grounded_only_adv_dt:
-        fl_e = mask_floating[md.EV]
+        fl_e = md.ext_V(mask_floating)[md.EV]
         has_ice = has_ice & ~fl_e.any(dim=1)
     dt = md.E_len / torch.clamp(torch.abs(u_c) + torch.abs(v_c),
                                 min=0.1) * 0.9
@@ -154,7 +154,7 @@ def make_divQ_operator(md: MeshData, u_vav_b, v_vav_b, fraction_margin,
     u_perp = _u_perp(md, u_vav_b, v_vav_b)
 
     fm_i = fraction_margin[:, None]
-    fm_j = torch.where(md.mask_C, fraction_margin[md.C], 0.0)
+    fm_j = torch.where(md.mask_C, md.ext_V(fraction_margin)[md.C], 0.0)
     LcA = md.Cw / md.A[:, None]
     if dtype is not None:
         u_perp = u_perp.to(dtype)
@@ -166,7 +166,7 @@ def make_divQ_operator(md: MeshData, u_vav_b, v_vav_b, fraction_margin,
     diag = out_coeff.sum(dim=1)
 
     def apply(H):
-        Hj = torch.where(md.mask_C, H[md.C], 0.0)
+        Hj = torch.where(md.mask_C, md.ext_V(H)[md.C], 0.0)
         return diag * H + (in_coeff * Hj).sum(dim=1)
 
     return apply, u_perp, diag

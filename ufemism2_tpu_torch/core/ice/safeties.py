@@ -148,7 +148,7 @@ def calc_and_apply_spill_over_flux(C, md: MeshData, masks, Hi_eff, u_perp,
     cm = torch.argmin(u_perp_m, dim=1)
     vj_up = torch.gather(md.C, 1, cm[:, None])[:, 0]
     u_min = torch.gather(u_perp_m, 1, cm[:, None])[:, 0]
-    Hi_up_nbr = Hi_new[vj_up]
+    Hi_up_nbr = md.ext_V(Hi_new)[vj_up]
     Hi_ups = torch.where((u_min < 0) & (Hi_up_nbr > 0), Hi_up_nbr, Hi_eff)
     Hi_ups = torch.where(cf, Hi_ups, Hi_eff)
 
@@ -156,7 +156,7 @@ def calc_and_apply_spill_over_flux(C, md: MeshData, masks, Hi_eff, u_perp,
     Q_src = torch.where(over, -(Hi_new - Hi_ups) * md.A / dt, 0.0)
 
     # weights toward neighbouring ocean cells
-    nbr_ocean = ocean[md.C] & md.mask_C
+    nbr_ocean = md.ext_V(ocean)[md.C] & md.mask_C
     weight = torch.where(nbr_ocean, torch.clamp(u_perp, min=0.0) + w_eps, 0.0)
     wsum = weight.sum(dim=1)
     no_ocean = wsum < w_eps
@@ -168,9 +168,9 @@ def calc_and_apply_spill_over_flux(C, md: MeshData, masks, Hi_eff, u_perp,
     # vj of Q_src[vj] * relweight[vj, index of vi in C[vj]]; the position
     # table rev_pos is static connectivity precomputed at mesh build.
     vj = md.C                                        # [nV,K]
-    rw_from_nbr = torch.gather(relweight[vj], 2,
+    rw_from_nbr = torch.gather(md.ext_V(relweight)[vj], 2,
                                md.rev_pos[:, :, None])[:, :, 0]
-    q_from_nbr = Q_src[vj]
+    q_from_nbr = md.ext_V(Q_src)[vj]
     contrib = torch.where(md.mask_C & (q_from_nbr < -1e-2)
                           & (rw_from_nbr > 1e-6),
                           -q_from_nbr * rw_from_nbr, 0.0)

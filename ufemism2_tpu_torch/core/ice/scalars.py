@@ -34,19 +34,19 @@ def calc_transitional_fluxes(md, Hi, masks, fraction_margin,
     across the shared Voronoi boundary (vi, vj) is L_c * u_perp * H_up."""
     u_c = map_b_to_c(md, u_vav_b)
     v_c = map_b_to_c(md, v_vav_b)
-    u_e = u_c[md.VE]                        # [nV, K]
-    v_e = v_c[md.VE]
+    u_e = md.ext_E(u_c)[md.VE]              # [nV, K]
+    v_e = md.ext_E(v_c)[md.VE]
     u_perp = u_e * md.D_x / md.D + v_e * md.D_y / md.D
 
     C = md.C
     valid = md.mask_C
-    Hi_vj = Hi[C]
-    fm_vj = fraction_margin[C]
+    Hi_vj = md.ext_V(Hi)[C]
+    fm_vj = md.ext_V(fraction_margin)[C]
 
     m_gr = masks["mask_grounded_ice"]
-    m_fl_j = masks["mask_floating_ice"][C]
-    m_ocean_j = masks["mask_icefree_ocean"][C]
-    m_land_j = masks["mask_icefree_land"][C]
+    m_fl_j = md.ext_V(masks["mask_floating_ice"])[C]
+    m_ocean_j = md.ext_V(masks["mask_icefree_ocean"])[C]
+    m_land_j = md.ext_V(masks["mask_icefree_land"])[C]
 
     Lc = torch.where(valid, md.Cw, 0.0)
     fm_i = fraction_margin[:, None]

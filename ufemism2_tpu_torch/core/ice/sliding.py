@@ -44,8 +44,8 @@ def apply_grounded_fractions_to_bed_roughness(C, masks, Hi, Hs_slope,
 def _extend_till_yield_to_neighbours(md: MeshData, masks, tau_y):
     """Ice-free land vertices next to grounded ice take the min neighbour
     till yield stress (extend_till_yield_stress_to_neighbours)."""
-    nbr_gr = masks["mask_grounded_ice"][md.C] & md.mask_C
-    tau_nbr = torch.where(nbr_gr, tau_y[md.C], torch.inf)
+    nbr_gr = md.ext_V(masks["mask_grounded_ice"])[md.C] & md.mask_C
+    tau_nbr = torch.where(nbr_gr, md.ext_V(tau_y)[md.C], torch.inf)
     min_nbr = tau_nbr.min(dim=1).values
     use = masks["mask_icefree_land"] & torch.isfinite(min_nbr)
     return torch.where(use, min_nbr, tau_y)

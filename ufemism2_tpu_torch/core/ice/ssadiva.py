@@ -181,13 +181,13 @@ def calc_front(md, Hi, Hb, SL, Hi_b):
     mean of the ice-free neighbours' centroids (the graph's border_nhat);
     the back pressure is calc_ocean_back_pressure:660-670 with
     Ho = min(max(SL - Hb, 0), rho_i/rho_sw * Hi)."""
-    ice_a = Hi > 0.1
+    ice_a = md.ext_V(Hi > 0.1)
     ice_b = ice_a[md.Tri].any(dim=1)
-    ice_nbr = ice_b[md.TriC]
+    ice_nbr = md.ext_Tri(ice_b)[md.TriC]
     noice_nbr = (~ice_nbr) & md.mask_TriC
     is_front = ice_b & noice_nbr.any(dim=1)
     off = ~ice_b
-    gc_nbr = md.TriGC[md.TriC]                  # [nTri, 3, 2]
+    gc_nbr = md.ext_Tri(md.TriGC)[md.TriC]      # [nTri, 3, 2]
     d = torch.where(noice_nbr[:, :, None],
                     gc_nbr - md.TriGC[:, None, :], 0.0).sum(dim=1)
     d_len = torch.sqrt((d ** 2).sum(dim=1))
@@ -211,12 +211,16 @@ def make_A(md, N_b, dN_dx_b, dN_dy_b, beta_eff_b, front=None):
     rows off the ice. On the card one launch of the kernel `diva_apply`,
     on the CPU its plain version. `A((u, v))` gives (Au, Av); `A.flat` is
     the same on the flat vector [u; v], which `gmres` takes when it is
-    there."""
+    there. On a rank of a sharded run the stack's columns are the rank's
+    extended [own ; halo] triangles, and the operator exchanges the halo
+    of (u, v) before each launch."""
     stack = md.M2_stack
     return DivaOperator(stack.op, md.x("ssa_diva_rows"), N_b, dN_dx_b, dN_dy_b,
                         beta_eff_b,
                         round_x_bf16=stack.vals.dtype == torch.float32,
-                        front=None if front is None else tuple(front[:4]))
+                        front=None if front is None else tuple(front[:4]),
+                        n_cols=stack.n_cols,
+                        extend=None if md.halo_Tri is None else md.ext_Tri)
 
 
 def make_precond(md, N_b, dN_dx_b, dN_dy_b, beta_eff_b, front=None):
@@ -555,8 +559,11 @@ def make_preconditioner(kind, md, A, fields, front=None, degree=3, b=None):
     block-Jacobi: alone, under a Chebyshev (spectrum estimated by power
     iteration from b) or Neumann polynomial of `degree` operator applies -
     on shelf-dominated states (beta_eff -> 0) plain block-Jacobi GMRES
-    stagnates - or with a coarse correction (two_level)."""
-    if kind == "block_dense":
+    stagnates - or with a coarse correction (two_level). On a rank of a
+    sharded run the dense block-Jacobi and two-level tables are dropped
+    (parallel/dist.py), and those two kinds take the 2x2 block-Jacobi, as
+    the reference's sharded step does (ssadiva.py:853-860 there)."""
+    if kind == "block_dense" and "bjd_vals" in md.extras:
         return make_precond_dense(md, *fields, front=front)
     M = make_precond(md, *fields, front=front)
     if kind == "chebyshev":
@@ -564,9 +571,9 @@ def make_preconditioner(kind, md, A, fields, front=None, degree=3, b=None):
         return make_chebyshev_preconditioner(A, M, degree, lam)
     if kind == "neumann":
         return make_neumann_preconditioner(A, M, degree)
-    if kind == "two_level":
+    if kind == "two_level" and "c2_bcol" in md.extras:
         return make_precond_two_level(md, *fields, M, front=front)
-    if kind != "block_jacobi":
+    if kind not in PRECONDITIONERS:
         raise ValueError(f"unknown preconditioner '{kind}'")
     return M
 
@@ -820,8 +827,8 @@ def make_solve_ssa_diva(C, md: MeshData, choice: str, bedrock_cdfs=None):
                 # (find_ti_copy_* BCs)
                 copy_inds = md.x("ssa_copy_inds")
                 copy_w = md.x("ssa_copy_w")
-                u_fix = (copy_w * c.u[copy_inds]).sum(dim=1)
-                v_fix = (copy_w * c.v[copy_inds]).sum(dim=1)
+                u_fix = (copy_w * md.ext_Tri(c.u)[copy_inds]).sum(dim=1)
+                v_fix = (copy_w * md.ext_Tri(c.v)[copy_inds]).sum(dim=1)
                 u_fix = C.visc_it_relax * u_fix + (1 - C.visc_it_relax) * c.u
                 v_fix = C.visc_it_relax * v_fix + (1 - C.visc_it_relax) * c.v
                 b_u = torch.where(bc_fix_u, u_fix, b_u)

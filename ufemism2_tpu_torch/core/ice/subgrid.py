@@ -17,7 +17,8 @@ from .geometry import thickness_above_flotation
 
 def calc_effective_thickness(md: MeshData, Hi, Hb, SL):
     """Returns (Hi_eff, fraction_margin) (subgrid_ice_margin.f90:19)."""
-    nbr_Hi = torch.where(md.mask_C, Hi[md.C], torch.inf)  # inf: "== 0" False
+    Hi_x = md.ext_V(Hi)
+    nbr_Hi = torch.where(md.mask_C, Hi_x[md.C], torch.inf)  # inf: "== 0" False
     m_margin = (Hi > 0.0) & ((nbr_Hi == 0.0).any(dim=1))
     m_float = is_floating(Hi, Hb, SL)
 
@@ -26,8 +27,8 @@ def calc_effective_thickness(md: MeshData, Hi, Hb, SL):
     Hi_eff = torch.where(~m_float | (Hi > 0.0), Hi, 0.0)
 
     # max ice thickness among non-margin neighbours (floating margins only)
-    nbr_margin = m_margin[md.C] & md.mask_C
-    nbr_Hi_valid = torch.where(md.mask_C & ~nbr_margin, Hi[md.C], 0.0)
+    nbr_margin = md.ext_V(m_margin)[md.C] & md.mask_C
+    nbr_Hi_valid = torch.where(md.mask_C & ~nbr_margin, Hi_x[md.C], 0.0)
     Hi_nbr_max = torch.where(m_float, nbr_Hi_valid.max(dim=1).values, 0.0)
 
     apply = m_margin & (Hi_nbr_max > Hi)
@@ -50,7 +51,7 @@ def calc_grounded_fractions_bilin_TAF(md: MeshData, Hi, Hb, SL, mask_floating):
     # Linear interpolation along each connection: fraction of the segment
     # with TAF>0, averaged over connections (lightweight approximation of
     # the bilinear sub-cell integral; exact on fully grounded/floating).
-    TAF_n = torch.where(md.mask_C, TAF[md.C], 0.0)
+    TAF_n = torch.where(md.mask_C, md.ext_V(TAF)[md.C], 0.0)
     Ti, Tj = TAF[:, None], TAF_n
     denom = torch.where(torch.abs(Ti - Tj) < 1e-30, 1e-30, Ti - Tj)
     lam = torch.clamp(Ti / denom, 0.0, 1.0)   # point where TAF crosses 0
@@ -69,7 +70,7 @@ def calc_grounded_fractions_bilin_TAF(md: MeshData, Hi, Hb, SL, mask_floating):
 
 def calc_grounded_fractions_b_from_a(md: MeshData, Tri, fraction_gr_a):
     """b-grid grounded fraction = mean over the triangle's vertices."""
-    return fraction_gr_a[Tri].mean(dim=1)
+    return md.ext_V(fraction_gr_a)[Tri].mean(dim=1)
 
 
 def calc_grounded_fractions_bedrock_cdf(Hi, SL, dHb, cdf):
@@ -149,7 +150,7 @@ def calc_grounded_fractions(C, md: MeshData, Hi, Hb, SL, mask_floating,
         # domain-border triangles: remapping there is unreliable - grounded
         # iff any corner has TAF > 0 (bedrock_CDF.f90:123-137)
         TAF = thickness_above_flotation(Hi, Hb, SL)
-        any_gr = (TAF[md.Tri] > 0.0).any(dim=1)
+        any_gr = (md.ext_V(TAF)[md.Tri] > 0.0).any(dim=1)
         f_cdf_b = torch.where(mask_border_b,
                               torch.where(any_gr, 1.0, 0.0).to(f_cdf_b.dtype),
                               f_cdf_b)
@@ -162,7 +163,7 @@ def calc_grounded_fractions(C, md: MeshData, Hi, Hb, SL, mask_floating,
         # a-grid: smallest of the two; b-grid: TAF at the grounding line,
         # CDF inland (subgrid_grounded_fractions_main.f90:63-99)
         f_a = torch.minimum(f_taf_a, f_cdf_a)
-        any_fl = mask_floating[md.Tri].any(dim=1)
+        any_fl = md.ext_V(mask_floating)[md.Tri].any(dim=1)
         f_b = torch.where(any_fl, f_taf_b, f_cdf_b)
         return f_a, f_b
     raise ValueError(

@@ -16,6 +16,7 @@ import torch
 
 from ..ops import resolve_device
 from ..ops.sparse import EllMatrix, EllStack, ell_from_csr, ell_stack_from_csr
+from ..parallel.comm import HaloTables, halo_extend
 
 
 @dataclass
@@ -107,15 +108,24 @@ class MeshData:
     halo_E: Any = None
 
     # -- halo hooks: on one device an entity space has no halo, so the
-    # extended-local view of a field is the field itself
+    # extended-local view of a field is the field itself; on a rank of a
+    # sharded run (parallel/dist.py, halo tables set) they extend the
+    # rank's block with its halo, so that gathers through the re-indexed
+    # tables stay local
     def ext_V(self, x):
-        return x
+        if self.halo_V is None:
+            return x
+        return halo_extend(x, self.halo_V)
 
     def ext_Tri(self, x):
-        return x
+        if self.halo_Tri is None:
+            return x
+        return halo_extend(x, self.halo_Tri)
 
     def ext_E(self, x):
-        return x
+        if self.halo_E is None:
+            return x
+        return halo_extend(x, self.halo_E)
 
     def x(self, name):
         """Registered extra field/table tensor by name."""
@@ -148,7 +158,7 @@ class MeshData:
     def to(self, device):
         """Copy of this MeshData with every tensor on `device`."""
         def mv(v):
-            if isinstance(v, (torch.Tensor, EllStack)):
+            if isinstance(v, (torch.Tensor, EllStack, HaloTables)):
                 return v.to(device)
             if isinstance(v, EField):
                 return EField(mv(v.arr), v.row)
@@ -243,7 +253,7 @@ def build_mesh_data(mesh, dtype=torch.float64, device="cuda") -> MeshData:
 
 def gather_neighbours(md: MeshData, x):
     """x[C] with padding masked to 0; x is [nV] or [nV, d]."""
-    g = x[md.C]
+    g = md.ext_V(x)[md.C]
     m = md.mask_C if g.ndim == 2 else md.mask_C[..., None]
     return torch.where(m, g, 0)
 
@@ -254,7 +264,7 @@ def map_b_to_c(md: MeshData, u_b):
     Mean of the two adjacent triangles; one-sided at border edges
     (reference map_velocities_from_b_to_c_2D, map_velocities_to_c_grid.f90:44).
     """
-    vals = u_b[md.ETri]                       # [nE,2] or [nE,2,d]
+    vals = md.ext_Tri(u_b)[md.ETri]           # [nE,2] or [nE,2,d]
     m = md.mask_ETri
     if vals.ndim == 3:
         m = m[..., None]

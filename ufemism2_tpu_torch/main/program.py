@@ -7,6 +7,8 @@ plume (main/laddie_program.py), or the port's unit tests.
 
 Usage:
     python -m ufemism2_tpu_torch <config.cfg> [--output-dir DIR] [--device cpu]
+    torchrun --nproc-per-node P -m ufemism2_tpu_torch <config.cfg>
+        --backend {gloo,nccl} [--output-dir DIR]
     python -m ufemism2_tpu_torch laddie <config.cfg> [--output-dir DIR]
         [--device cpu]
     python -m ufemism2_tpu_torch unit_tests
@@ -18,12 +20,21 @@ main_output_<R>_grid.nc, scalar_output_<R>_00001.nc,
 restart_<R>_00001.nc) into <output dir>/<R>/; the regions' scalars are
 also kept in each region's `scalars_history` and the final ones printed.
 The run is on the card unless --device names another device.
+
+A configuration with tpu_n_devices = P > 1 runs as P processes, one a
+rank, started by torchrun: --backend joins the process group torchrun
+describes (env://) with gloo (every rank on --device, e.g. all on one
+card) or nccl (rank r on cuda:<local rank r>; one card a rank). Each rank
+holds the regions and steps its block of the ice dynamics; rank 0 alone
+writes the output directory. Without a process group of world size P the
+run raises, naming tpu_n_devices.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import platform
 import subprocess
 import sys
@@ -32,6 +43,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import load_config
 from ..models.forcings import GlobalForcings
@@ -104,6 +116,12 @@ def run_model(config_path: str, output_dir: str | None = None,
     if C.dt_coupling <= 0.0:
         raise ValueError(f"dt_coupling must be positive, got "
                          f"{C.dt_coupling}")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if dist.is_initialized() and world != C.tpu_n_devices:
+        raise RuntimeError(
+            f"tpu_n_devices = {C.tpu_n_devices} but the process group has "
+            f"world size {world}: start tpu_n_devices ranks")
+    writes = not dist.is_initialized() or dist.get_rank() == 0
     if output_dir is None:
         if C.create_procedural_output_dir:
             stamp = _time.strftime("%Y%m%d")
@@ -114,10 +132,12 @@ def run_model(config_path: str, output_dir: str | None = None,
         else:
             output_dir = C.fixed_output_dir or "results"
     out = Path(output_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    # copy the config into the output dir (the reference does the same)
-    (out / Path(config_path).name).write_text(Path(config_path).read_text())
-    write_run_manifest(out, config_path, device)
+    if writes:
+        out.mkdir(parents=True, exist_ok=True)
+        # copy the config into the output dir (the reference does the same)
+        (out / Path(config_path).name).write_text(
+            Path(config_path).read_text())
+        write_run_manifest(out, config_path, device)
 
     forcings = GlobalForcings(C)
 
@@ -149,7 +169,8 @@ def run_model(config_path: str, output_dir: str | None = None,
             region.run_to(t_next)
         t = t_next
         # per-coupling-interval resource-tracking record + reset
-        _write_resource_record(out, t)
+        if writes:
+            _write_resource_record(out, t)
 
         # MISMIP+ flow-factor tuning for the GL position
         # (UFEMISM_program.f90:114-123)
@@ -229,6 +250,20 @@ def mismipplus_adapt_flow_factor(C, region):
     return C
 
 
+def join_process_group(backend, device):
+    """Join the process group torchrun describes in the environment
+    (env://) with `backend`; the rank's device: `device` for gloo, the
+    card of the rank's local index for nccl (which refuses two ranks on
+    one card)."""
+    dist.init_process_group(backend, init_method="env://")
+    if backend == "nccl" and device == "cuda":
+        device = f"cuda:{int(os.environ['LOCAL_RANK'])}"
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is not None:
+        torch.cuda.set_device(d)
+    return device
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="ufemism2_tpu_torch",
                                 description=__doc__.split("\n\n")[0])
@@ -242,7 +277,14 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: the card; "
                    "'cpu' only when asked for)")
+    p.add_argument("--backend", choices=("gloo", "nccl"), default=None,
+                   help="join the torch.distributed process group that "
+                   "torchrun set up, for a tpu_n_devices > 1 run: gloo "
+                   "(every rank on --device) or nccl (rank r on "
+                   "cuda:<local rank>)")
     args = p.parse_args(argv)
+    if args.backend is not None:
+        args.device = join_process_group(args.backend, args.device)
 
     if args.config == "unit_tests":
         import pytest

@@ -21,9 +21,14 @@ scalar, transect, ISMIP and restart files of io/ and models/transects.py),
 restarts and the checksum log, the LADDIE sub-shelf melt
 (models/laddie.py), the Salle2025 transient hydrology, the Lagrangian
 tracers and the regions of interest (their mesh refinement, the
-reconstructed SMB, the hybrid's ROI mask and a scalar file each). What is
-still missing raises NotImplementedError at construction, naming the
-choice and its ROADMAP item: more than one device (A.19), and the GIA,
+reconstructed SMB, the hybrid's ROI mask and a scalar file each), and
+multi-device runs: with tpu_n_devices = P > 1, inside a torch.distributed
+process group of world size P, each rank holds the region and run_to
+advances the ice dynamics and the fused thermodynamics sharded over the
+ranks (parallel/dist.py ShardedModel; the component events run on every
+rank on the replicated full state, and rank 0 alone writes files).
+Outside such a group it raises by name. What is still missing raises
+NotImplementedError at construction, naming the choice: the GIA,
 sea-level and initialisation choices `_check_slice` lists.
 """
 
@@ -86,6 +91,8 @@ from ..core.ice.geometry import (ice_surface_elevation,
                                  thickness_above_flotation)
 from ..utils.checksum import ChecksumLogger
 from ..utils.logging_utils import routine, happy, warning
+from ..parallel.sharding import RankGroup
+from ..parallel.dist import ShardedModel, check_shardable
 
 
 _BIG = 9.9e9
@@ -108,7 +115,6 @@ def _check_slice(C, name):
     _require(C, "choice_tracer_tracking_model", ("none", "particles"))
     _require(C, f"pc_choice_initialise_{name}", ("zero", "read_from_file"))
     _require(C, f"choice_initial_velocity_{name}", ("zero",))
-    _require(C, "tpu_n_devices", (1,), "multi-device runs, ROADMAP A.19")
     _require(C, "tpu_precision", ("f32", "f64"))
 
 
@@ -125,6 +131,16 @@ class ModelRegion:
         C = self.C
         _check_slice(C, self.name)
         self.device = resolve_device(self.device)
+        # a multi-device run: this process is one rank of a process group
+        # of world size tpu_n_devices, or the region raises (no fallback
+        # to one device); rank 0 alone writes files
+        self._n_ranks = int(C.tpu_n_devices)
+        self._rank_group = None
+        if self._n_ranks > 1:
+            check_shardable(C, self._n_ranks)
+            self._rank_group = RankGroup.of_world(self._n_ranks, self.device)
+            if self._rank_group.rank != 0:
+                self.output_dir = None
         with routine("initialise_model_region"):
             if self.mesh is None:
                 with routine("setup_first_mesh"):
@@ -326,6 +342,14 @@ class ModelRegion:
                 fname = getattr(C, f"filename_pc_initialise_{self.name}")
                 _, st = restore_state_from_restart(self.state, fname)
                 self.state = self.state.replace(pc=st.pc)
+
+            # multi-device run: the sharded step, built last, from the
+            # initialised region (as the JAX package does,
+            # ufemism2_tpu/main/region.py:357-362)
+            self._dist = None
+            if self._rank_group is not None:
+                self._dist = ShardedModel(C, self, self._n_ranks,
+                                          self._rank_group)
 
     def _build_on_mesh(self):
         """Everything that holds the mesh's tables or device pointers:
@@ -812,7 +836,9 @@ class ModelRegion:
                     if C.allow_mesh_updates:
                         t_stop = min(t_stop, self.t_last_mesh_update
                                      + C.dt_mesh_update_min)
-                    if t_stop > self.state.t_Hi_next + 1e-9:
+                    if self._dist is not None:
+                        self._run_sharded(t_stop, dt_max, verbose)
+                    elif t_stop > self.state.t_Hi_next + 1e-9:
                         step(self.do_thermo)
                         while self.state.t_Hi_next < t_stop - 1e-9:
                             step(self.do_thermo)
@@ -831,6 +857,38 @@ class ModelRegion:
         self._sync()
         self.wallclock = _time.perf_counter() - t0_wall
         return self.state
+
+    def _run_sharded(self, t_stop, dt_max, verbose):
+        """The ice steps of one window sharded over the ranks: the state
+        and the forcing split into the ranks' blocks, the steps (with the
+        thermodynamics fused) up to t_stop, the state gathered back, so
+        that the component events run on the full state on every rank.
+        As in the single-device loop, a window that the prediction
+        already covers takes one step without thermodynamics."""
+        D = self._dist
+        sd = D.to_dist(self.state)
+        SMB, BMB, LMB = (D.pad_field_V(f) for f in (self.SMB, self.BMB,
+                                                    self.LMB))
+        if t_stop > self.state.t_Hi_next + 1e-9:
+            T_surf = D.pad_field_V(self._T_surf) if self.do_thermo else None
+            sd, n, t_th, n_th, n_unstable = D.multistep(
+                sd, t_stop, dt_max, SMB=SMB, BMB=BMB, LMB=LMB,
+                T_surf=T_surf, t_th=self.t_thermo_next)
+            if self.do_thermo:
+                self.t_thermo_next = t_th
+                self.thermo_steps += n_th
+                self.thermo_n_unstable = self.thermo_n_unstable + n_unstable
+        else:
+            sd, n = D.step(sd, dt_max, SMB=SMB, BMB=BMB, LMB=LMB), 1
+        self.state = D.from_dist(sd)
+        self.n_dt_ice += n
+        if verbose:
+            print(f"  t={self.state.t_Hi_next:12.2f} yr  "
+                  f"dt={self.state.dt_ice:8.4f}  "
+                  f"steps={self.n_dt_ice}  "
+                  f"visc={self.state.n_visc_its}  "
+                  f"axb={self.state.n_Axb_its}  (sharded over "
+                  f"{self._n_ranks} ranks)", flush=True)
 
     def _catch_up_thermo(self):
         """Thermodynamics up to the new prediction time: every
@@ -1072,6 +1130,10 @@ class ModelRegion:
         if C.choice_tracer_tracking_model == "particles":
             self._build_tracers()
         self._refresh_forcing()
+        if self._dist is not None:
+            # the halo tables and blocks are the old mesh's
+            self._dist = ShardedModel(C, self, self._n_ranks,
+                                      self._rank_group)
         self._sync()
         t_device = _time.perf_counter()
         self._rotate_outputs_for_new_mesh()

@@ -237,6 +237,10 @@ def diva_apply_plain(stack, rows, N_b, dN_dx_b, dN_dy_b, beta_eff_b, u, v,
     if round_x_bf16:
         x = _round_bf16(x)
     xg = x[cols.long()]                       # [K, n_rows, 2]
+    # u, v may be a rank's extended [own ; halo] vectors: the rows are the
+    # first n_rows entries
+    n = cols.shape[1]
+    u_ext, v_ext, u, v = u, v, u[:n], v[:n]
     d = torch.zeros((vals.shape[0],) + xg.shape[1:], dtype=x.dtype,
                     device=x.device)
     for k in range(vals.shape[1]):
@@ -255,14 +259,14 @@ def diva_apply_plain(stack, rows, N_b, dN_dx_b, dN_dy_b, beta_eff_b, u, v,
     # sum(x[nbrs]) - n*x
     n_nbr = rows.mask_TriC.sum(dim=1).to(N_b.dtype)
 
-    def nbr_mean_residual(x):
-        s = torch.where(rows.mask_TriC, x[rows.TriC], 0.0).sum(dim=1)
+    def nbr_mean_residual(x_ext, x):
+        s = torch.where(rows.mask_TriC, x_ext[rows.TriC], 0.0).sum(dim=1)
         return s - n_nbr * x
 
     Au = torch.where(rows.free, Au, torch.where(
-        rows.inf_u, nbr_mean_residual(u), u))
+        rows.inf_u, nbr_mean_residual(u_ext, u), u))
     Av = torch.where(rows.free, Av, torch.where(
-        rows.inf_v, nbr_mean_residual(v), v))
+        rows.inf_v, nbr_mean_residual(v_ext, v), v))
     if front is not None:
         is_front, off, n_x, n_y = front
         Au_f = (4 * N_b * n_x * ddx_u + N_b * n_y * ddy_u
@@ -286,11 +290,23 @@ class DivaOperator:
     calving front: the operator then carries its own row codes (the static
     ones with ROW_FRONT and ROW_OFF set), formed once here on the device,
     and the kernel instance that reads them and the normals; without a
-    front the kernel is the infinite-slab instance."""
+    front the kernel is the infinite-slab instance.
+
+    On a rank of a sharded run the operator has n_rows rows and `n_cols`
+    = n_rows + Hh columns: `extend` maps the rank's (u, v) block
+    [n_rows, 2] to its extended [own ; halo] form [n_cols, 2] (the halo
+    exchange, md.ext_Tri), and the kernel reads u and v there, at the row
+    itself and at its stack and TriC columns. `A.flat` and `A((u, v))`
+    take the rank's block either way."""
 
     def __init__(self, stack: StackOperator, rows: DivaRows, N_b, dN_dx_b,
-                 dN_dy_b, beta_eff_b, round_x_bf16=False, front=None):
+                 dN_dy_b, beta_eff_b, round_x_bf16=False, front=None,
+                 n_cols=None, extend=None):
         n = stack.n_rows
+        n_cols = n if n_cols is None else n_cols
+        if (extend is None) != (n_cols == n):
+            raise ValueError(f"diva_apply: {n_cols} columns on {n} rows "
+                             f"need an extend (and only they do)")
         fields = (N_b, dN_dx_b, dN_dy_b, beta_eff_b)
         if stack.n_ops != 5:
             raise ValueError("diva_apply: needs the five-operator stack, "
@@ -325,6 +341,7 @@ class DivaOperator:
             if t.device != stack.device:
                 raise ValueError("diva_apply: operands on different devices")
         self.stack, self.rows, self.n = stack, rows, n
+        self.n_cols, self.extend = n_cols, extend
         self.round = bool(round_x_bf16)
         self.front, self.code = front, code
         # contiguous copies where needed, kept alive with the pointers
@@ -342,6 +359,17 @@ class DivaOperator:
                 n, stack.K, self.round)
             self._desc_ptr = ctypes.addressof(self._desc)
             self._step = n * stack.vals.element_size()
+
+    def _ext(self, u, v):
+        """(u, v) on the operator's columns: the extended vectors of a
+        rank (one halo exchange of both), else u and v themselves."""
+        if self.extend is None:
+            return u, v
+        uv = self.extend(torch.stack([u, v], dim=1)).t().contiguous()
+        if uv.shape[1] != self.n_cols:
+            raise ValueError(f"diva_apply: extend gave {uv.shape[1]} "
+                             f"columns, the operator has {self.n_cols}")
+        return uv[0], uv[1]
 
     def _check(self, x, shape):
         if x.dtype != self.stack.dtype:
@@ -379,6 +407,8 @@ class DivaOperator:
         """[Au; Av] for x = [u; v], both flat vectors of 2 n_rows."""
         n = self.n
         x = self._check(x, (2 * n,))
+        if self.extend is not None:
+            return torch.cat(self(((x[:n], x[n:]))))
         if self._index is None:
             return torch.cat(self._plain(x[:n], x[n:]))
         y = torch.empty_like(x)
@@ -389,7 +419,7 @@ class DivaOperator:
     def __call__(self, uv):
         u, v = uv
         n = self.n
-        u, v = self._check(u, (n,)), self._check(v, (n,))
+        u, v = self._ext(self._check(u, (n,)), self._check(v, (n,)))
         if self._index is None:
             return self._plain(u, v)
         y = torch.empty(2 * n, dtype=u.dtype, device=u.device)

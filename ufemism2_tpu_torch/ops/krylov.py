@@ -304,12 +304,13 @@ def gmres(A: Callable, b, x0=None, M: Callable = None,
         while j < m and res > tol:
             # CGS2 (classical Gram-Schmidt, re-orthogonalised): two dense
             # [j+1,n]@[n] products instead of a sequential inner loop -
-            # numerically equivalent to MGS in practice
+            # numerically equivalent to MGS in practice; each column of
+            # products summed over the ranks of a sharded run
             w = Mf(Af(Vm[j]))
             Vj = Vm[:j + 1]
-            h1 = Vj @ w
+            h1 = comm.gsum(Vj @ w)
             w = w - h1 @ Vj
-            h2 = Vj @ w
+            h2 = comm.gsum(Vj @ w)
             w = w - h2 @ Vj
             hj1 = comm.norm(w)
             Vm[j + 1] = w / torch.where(hj1 < tiny, 1.0, hj1)
