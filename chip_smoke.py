@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile STEPS] [--profile-out FILE]
-        [--antarctica-only | --laddie-only | --multidevice-only]
+        [--antarctica-only | --laddie-only | --multidevice-only |
+         --validation-only]
         [--ant-init-years Y]
 
 Needs one CUDA device and nvcc; exits non-zero without them. Phases, each
@@ -261,12 +262,42 @@ of which ends the run with a non-zero exit if it fails:
               effective pressure within 1e-10, the same live particles,
               the per-ROI scalars.
 
+35. validation - the validation harness (ufemism2_tpu_torch/validation/):
+              stand-ins for the reference's four quick-tier configs
+              (VAL_STANDINS: the Halfar dome at 40 km, Schoof's ice
+              stream at 32 km, ISMIP-HOM A with DIVA at L = 160 km, the
+              MISMIP+ spin-up, cut for the time) written into the
+              reference's layout, the harness's REF_TESTS pointed at them,
+              and program.main(["integrated_tests", ...]) (the quick tier)
+              on the card in a process of its own, started with phase
+              10's CPU runs so that its host-bound runs go on beside
+              10-19: each runner's launches counted (launches_by_path
+              validation_*), then diva_apply on the quick MISMIP+ run's
+              last apply and heat_columns on the Halfar run's last call
+              against their plain versions. Here the script waits for it
+              and holds every entry: finite cost functions with the
+              stability counters, the Halfar dome to RMSE < 60 m after
+              more than 10 steps, the quick MISMIP+ to a grounding line.
+              program.main(["component_tests", ...]) (the default suite:
+              24 scoreboard entries, the mass-conservation tier on the
+              card); the demo model, both variants, card against CPU
+              through a remap and a restart ('a' within 1e-12, 'b'
+              bit-equal). Made earlier, where their inputs are: the NaN
+              sanitizer on 5's two SMALL regions (clean they pass; with a
+              NaN put into the ice thickness and do_check_for_NaN on, both
+              raise NaNDetected naming the same fields), and the run tools
+              (tools/run.py Run, diagnose_run, analyse_resources) on
+              phase 10's MISMIP+ output directory right after 10.
+
 With --antarctica-only the script builds the kernels and runs 26-29 alone
 (no result line); --ant-init-years Y makes 26's window Y model years (not
 ANT_INIT_YEARS; the pins of 26, 27 and 29 are then not held), run in
 windows of ANT_WINDOW_YEARS either way, each printed. With --laddie-only
 it builds the kernels and runs 30-34 alone (no result line), with
---multidevice-only 9b alone on the 8 km mesh (no result line). Every
+--multidevice-only 9b alone on the 8 km mesh (no result line), with
+--validation-only 35 alone, with the sanitizer on SMALL regions of its
+own and the run tools on an MP_SMALL run of program.main (no result
+line). Every
 result line carries `at_s`, the script's elapsed seconds.
 
 The last line of standard output is
@@ -274,10 +305,13 @@ The last line of standard output is
 """
 
 import argparse
+import atexit
 import contextlib
 import importlib.util
+import io
 import json
 import os
+import pathlib
 import shutil
 import subprocess
 import sys
@@ -596,11 +630,14 @@ SMALL_EXP2_LEGS = (2.0, 1.0, 2.0)
 
 
 _T0 = time.perf_counter()
+_JOB = None        # the name of a card job (start_card_job) in its process
 
 
 def say(phase, **kv):
-    """One result line; `at_s` is the script's elapsed time."""
-    print(json.dumps({"phase": phase, **kv,
+    """One result line; `at_s` is the script's elapsed time (in a card
+    job, on its parent's clock, and the line carries the job's name)."""
+    job = {} if _JOB is None else {"job": _JOB}
+    print(json.dumps({"phase": phase, **kv, **job,
                       "at_s": round(time.perf_counter() - _T0, 1)}),
           flush=True)
 
@@ -1034,11 +1071,12 @@ def heat_case(name, args):
     return out_d
 
 
-def small_phase(phase, Cs, mesh_s):
+def small_phase(phase, Cs, mesh_s, then=None):
     """The coarse f64 configuration on the card (kernels) and on the CPU
     (plain versions), SMALL_YR model years: the same steps and viscosity
     iterations, fields within the gaps of two f64 runs that differ in
-    summation order."""
+    summation order. `then`, if given, is called with both regions at
+    the end."""
     from ufemism2_tpu_torch.main.region import ModelRegion
     t0 = time.perf_counter()
     r_cpu = ModelRegion(Cs, "ANT", mesh=mesh_s, device="cpu")
@@ -1066,6 +1104,8 @@ def small_phase(phase, Cs, mesh_s):
         and gaps["v_vav_b"] < 1e-5, gaps
     assert r_cpu.thermo_steps == r_gpu.thermo_steps
     assert gaps["Ti"] <= 1e-12, gaps
+    if then is not None:
+        then({"cpu": r_cpu, "cuda": r_gpu})
     return gaps
 
 
@@ -3744,6 +3784,67 @@ def antarctica_phases(workdir, years=ANT_INIT_YEARS):
     return ant_init, ant_itm, (init_cases, itm_cases), (ant_hydro, small)
 
 
+def start_card_job(fn, *args):
+    """chip_smoke.<fn>(*args) in a process of its own on the card, in a
+    session of its own (stop_card_job ends it and every process it
+    started): its result lines go to standard output on this process's
+    clock, each with the job's name (`job`), so that phases whose runs
+    are host-bound go on beside this process's. Returns the process."""
+    t0_epoch = time.time() - (time.perf_counter() - _T0)
+    return subprocess.Popen(
+        [sys.executable, "-c", "import importlib.util, sys; "
+         "spec = importlib.util.spec_from_file_location('chip_smoke', "
+         "sys.argv[1]); m = importlib.util.module_from_spec(spec); "
+         "spec.loader.exec_module(m); m.card_job(*sys.argv[2:])",
+         os.path.abspath(__file__), fn, repr(t0_epoch), *args],
+        stdout=sys.stdout, stderr=sys.stderr, start_new_session=True)
+
+
+def card_job(fn, t0_epoch, *args):
+    """The body of a start_card_job process: the parent's clock, the
+    libraries the parent built, then fn(*args)."""
+    global _T0, _JOB
+    _T0 = time.perf_counter() - (time.time() - float(t0_epoch))
+    _JOB = fn
+    from ufemism2_tpu_torch.ops import (cuda_bpa, cuda_heat, cuda_laddie,
+                                        cuda_spmv)
+    for m in (cuda_spmv, cuda_heat, cuda_bpa, cuda_laddie):
+        m.load_kernels()
+    say("job_start", pid=os.getpid())
+    globals()[fn](*args)
+
+
+def stop_card_job(proc):
+    """Kill a start_card_job process and its session if it still runs (a
+    job that ends stops the processes it started itself)."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, 9)
+        proc.wait()
+
+
+def finish_card_job(proc, path, what, timeout=1200):
+    """Wait for a start_card_job process; its saved result and the wait."""
+    t0 = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        stop_card_job(proc)
+    assert rc == 0, f"the card job {what} failed (exit code {rc})"
+    # a file this script's own child process wrote
+    return torch.load(path, weights_only=False), time.perf_counter() - t0
+
+
+def antarctica_laddie_job(workdir, out_path, years=repr(ANT_INIT_YEARS)):
+    """antarctica_phases (antarctica_init's window `years`), then
+    laddie_phases on their 80 km data, as a card job (the whole run starts
+    it with phase 10, so that these host-bound runs go on beside phases
+    10-25), both results saved to out_path. Two torch threads: the host's
+    cores are shared with the phases beside it."""
+    torch.set_num_threads(2)
+    ant = antarctica_phases(workdir, float(years))
+    torch.save((ant, laddie_phases(workdir, ant[3][1])), out_path)
+
+
 def ant_launches(ant_init, ant_itm, key):
     """launches_by_path entries of the two Antarctica phases."""
     return {"antarctica_init": ant_init["launches"][key],
@@ -5116,6 +5217,395 @@ def multidevice_phase(md):
     return launches, cases
 
 
+# -- 35. the validation harness --------------------------------------------
+# Stand-ins for the reference's integrated-test configs that the quick tier
+# reads (REF_TESTS of ufemism2_tpu_torch/validation/integrated_tests.py;
+# the reference's files are not in the repository), written as namelists
+# into the reference's layout under the work directory. The reference's
+# configs carry no tpu_precision, so the schema's f64 holds in all four.
+# The Halfar dome of HALFAR at 40 km (the schema's 3-D heat equation),
+# 500 model years (the harness's quick tier runs 50)
+VAL_HALFAR = dict({k: v for k, v in HALFAR.items()},
+                  maximum_resolution_uniform=40e3,
+                  maximum_resolution_grounded_ice=40e3,
+                  maximum_resolution_ice_front=40e3, ice_front_width=40e3,
+                  end_time_of_run=500.0)
+# Schoof's (2006, J. Fluid Mech. 556) ice stream with the parameters
+# Bueler and Brown (2009, J. Geophys. Res. 114, F03008) publish for it as
+# their test I: H 2000 m, a surface slope of 0.001 (the bed falling in
+# +x), L 40 km, m 10, B 3.7e8 Pa s^(1/3) (A = B^-3 = 6.23e-19 Pa^-3
+# yr^-1); the reference's boundaries (u and v copied across the x sides,
+# zero on the y sides), SSA with the idealised plastic till, a 32 km mesh
+# on +-150 km, one 0.1-year step after the initial solve; the viscosity
+# settings the JAX harness names (integrated_tests.py:157-159:
+# visc_it_nit 5000 at a tolerance of 5e-8)
+VAL_SSA = dict(
+    choice_refgeo_init_ANT="idealised",
+    choice_refgeo_init_idealised="SSA_icestream",
+    refgeo_idealised_SSA_icestream_Hi=2000.0,
+    refgeo_idealised_SSA_icestream_dhdx=-0.001,
+    refgeo_idealised_SSA_icestream_L=40e3,
+    refgeo_idealised_SSA_icestream_m=10.0,
+    choice_ice_rheology_Glen="uniform",
+    uniform_Glens_flow_factor=3.7e8 ** -3 * 31556926.0,
+    choice_stress_balance_approximation="SSA",
+    choice_sliding_law="idealised",
+    choice_idealised_sliding_law="SSA_icestream",
+    choice_thermo_model="none", choice_initial_ice_temperature_ANT="uniform",
+    choice_SMB_model_ANT="uniform", uniform_SMB=0.0,
+    BC_u_west="infinite_SSA_icestream", BC_v_west="infinite_SSA_icestream",
+    BC_u_east="infinite_SSA_icestream", BC_v_east="infinite_SSA_icestream",
+    BC_u_north="zero", BC_v_north="zero",
+    BC_u_south="zero", BC_v_south="zero",
+    xmin_ANT=-150e3, xmax_ANT=150e3, ymin_ANT=-150e3, ymax_ANT=150e3,
+    maximum_resolution_uniform=32e3, maximum_resolution_grounded_ice=32e3,
+    nit_Lloyds_algorithm=2, allow_mesh_updates=False,
+    start_time_of_run=0.0, end_time_of_run=0.1,
+    visc_it_nit=5000, visc_it_norm_dUV_tol=5e-8)
+# ISMIP-HOM A at L = 160 km with DIVA (ismip_hom_cfg; a mesh of L/40)
+VAL_ISMIP = {k: v for k, v in ismip_hom_cfg(
+    "A", 160e3, 160e3 / 40,
+    choice_stress_balance_approximation="DIVA").items()
+    if k != "tpu_precision"}
+# the MISMIP+ spin-up stand-in: MISMIPPLUS without its tpu_precision (f64,
+# as the reference's configs have it), cut to run the quick tier's 20
+# model years from 500 m of ice (the tier also sets 16 km at the grounding
+# line and 32 km on grounded ice) within the script's time: 32 km
+# everywhere else, GMRES(300) (at GMRES(60) these f64 solves stagnate, as
+# MD_F64's do), the viscosity loop at 3 iterations and the corrector at 2
+# (the CPU tests' cut, as in SMALL and MP_SMALL). Uncut (nV 1,663, f64) the
+# tier's MISMIP+ ran past 1,400 s on the card, and in f32 with 32 km
+# elsewhere and 16 km at the front (nV 351) past 1,100 s: its 500 m slab's
+# solves stagnate from the third model year on (the JAX package's own
+# record of the tier has 826,944 Krylov iterations, scoreboard/).
+VAL_MISMIPPLUS = dict(
+    {k: v for k, v in MISMIPPLUS.items() if k != "tpu_precision"},
+    maximum_resolution_uniform=32e3, maximum_resolution_floating_ice=32e3,
+    maximum_resolution_calving_front=32e3, calving_front_width=32e3,
+    maximum_resolution_ice_front=32e3, ice_front_width=32e3,
+    tpu_stress_balance_krylov_restart=300, visc_it_nit=3, pc_nit_max=2)
+VAL_STANDINS = {
+    "idealised/Halfar_dome/config_Halfar_40km.cfg": VAL_HALFAR,
+    "idealised/SSA_icestream/config_01_32km.cfg": VAL_SSA,
+    "idealised/ISMIP-HOM/config_ISMIP_HOM_A_160_DIVA.cfg": VAL_ISMIP,
+    "idealised/MISMIPplus/config_01_5km_spinup_part0.cfg": VAL_MISMIPPLUS,
+}
+VAL_HALFAR_RMSE_M = 60.0        # tests/test_integrated_quick.py's limits
+VAL_HALFAR_MIN_STEPS = 10
+VAL_PATHS = {"run_halfar": "validation_halfar",
+             "run_ssa_icestream": "validation_ssa_icestream",
+             "run_ismip_hom": "validation_ismip_hom_a_diva_l160",
+             "run_mismipplus": "validation_mismipplus_quick"}
+DEMO_TOL_A = 1e-12
+
+
+def write_standins(root):
+    """VAL_STANDINS as namelists under root, each marked a stand-in."""
+    for rel, values in VAL_STANDINS.items():
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        write_namelist(path, values)
+        with open(path) as f:
+            text = f.read()
+        with open(path, "w") as f:
+            f.write(f"! stand-in for the reference's {os.path.basename(rel)}"
+                    " (chip_smoke.py VAL_STANDINS)\n" + text)
+    return root
+
+
+def scoreboard_entries(d):
+    out = {}
+    for name in sorted(os.listdir(d)):
+        with open(os.path.join(d, name)) as f:
+            e = json.load(f)
+        out[name] = {c["name"]: c["value"] for c in e["cost_functions"]}
+    return out
+
+
+def validation_component(sb):
+    """The component tests' default suite through program.main on the
+    card; the launches of the mass-conservation tier (the only tier on
+    the device) counted."""
+    from ufemism2_tpu_torch.main import program
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        runs = program.main(["component_tests", "--output-dir", sb])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    entries = scoreboard_entries(sb)
+    say("validation_component_tests", seconds=time.perf_counter() - t0,
+        n_entries=len(entries), entries=entries, **counts)
+    assert len(runs) == len(entries) == 24, len(entries)
+    for name, cfs in entries.items():
+        assert all(np.isfinite(v) for v in cfs.values()), name
+    mass = [e for n, e in entries.items() if "mass_conservation" in n]
+    assert len(mass) == 3 and all(len(e) == 4 for e in mass)
+    return counts
+
+
+def validation_integrated(sb):
+    """The quick tier through program.main on the card, each runner
+    wrapped: the kernels' launches counted around it, its wall, the
+    MISMIP+ run's last GMRES operator and the Halfar run's last
+    heat_columns call kept. Returns (runners, kept, entries, runs)."""
+    from ufemism2_tpu_torch.main import program
+    from ufemism2_tpu_torch.validation import integrated_tests as it
+    per, inner = {}, {n: getattr(it, n) for n in VAL_PATHS}
+    kept = {}
+
+    def wrapped(name):
+        def run(*a, **kw):
+            zero_counts()
+            t0 = time.perf_counter()
+            with counted_gmres() as gm, last_heat_call() as last:
+                r = inner[name](*a, **kw)
+                torch.cuda.synchronize()
+            per[name] = dict(read_counts(), seconds=time.perf_counter() - t0,
+                             gmres_calls=gm["calls"], gmres_its=gm["its"])
+            say("validation_runner", runner=name, summary=r.summary(),
+                **per[name])
+            if name == "run_mismipplus":
+                kept["diva"] = (gm["A"], torch.cat(gm["x"]))
+            if name == "run_halfar":
+                kept["heat"] = last.get("args")
+            return r
+        return run
+    for name in VAL_PATHS:
+        setattr(it, name, wrapped(name))
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            runs = program.main(["integrated_tests", "--output-dir", sb])
+        seconds = time.perf_counter() - t0
+    finally:
+        for name, fn in inner.items():
+            setattr(it, name, fn)
+    entries = scoreboard_entries(sb)
+    runs = [dict(name=r.name, cost_functions={
+        c["name"]: c["value"] for c in r.cost_functions}) for r in runs]
+    return dict(per, seconds=seconds), kept, entries, runs
+
+
+def check_integrated(per, entries, runs):
+    """The quick tier's entries held: finite, with the stability counters;
+    the Halfar dome within the JAX test's limits, the SSA stream and
+    ISMIP-HOM scored, the quick MISMIP+ with a grounding line; every
+    runner of the tier through its kernels."""
+    say("validation_integrated_tests", seconds=per["seconds"],
+        entries=entries, runners={k: v for k, v in per.items()
+                                  if k != "seconds"})
+    assert [r["name"] for r in runs] == ["Halfar_40km", "SSA_icestream",
+                                         "experiment_A_DIVA_L160",
+                                         "MISMIPplus_quick"], runs
+    for r in runs:
+        cf = r["cost_functions"]
+        assert all(np.isfinite(v) for v in cf.values()), (r["name"], cf)
+        assert {"n_dt_ice", "n_visc_its", "n_Axb_its"} <= set(cf), r["name"]
+    hal, ssa, ih, mp = (r["cost_functions"] for r in runs)
+    assert hal["rmse"] < VAL_HALFAR_RMSE_M \
+        and hal["n_dt_ice"] > VAL_HALFAR_MIN_STEPS, hal
+    assert per["run_halfar"]["heat_columns_launches"] > 0
+    assert 0.0 < ssa["RMSE_32km"] and ssa["n_visc_its"] > 0, ssa
+    assert 0.0 < ih["u_surf_min"] < ih["u_surf_max"], ih
+    # the quick MISMIP+ spin-up has a grounding line to score
+    assert 0.0 < mp["x_GL_km"] < 800.0, mp
+    for name in ("run_ssa_icestream", "run_ismip_hom", "run_mismipplus"):
+        assert per[name]["diva_apply_launches"] > 0, name
+
+
+def point_harness(workdir):
+    """VAL_STANDINS written under workdir in the reference's layout and
+    the harness's REF_TESTS, MISMIP_MOD_DIR and ANT_CFG pointed there."""
+    from ufemism2_tpu_torch.validation import integrated_tests as it
+    root = write_standins(os.path.join(
+        workdir, "reference", "automated_testing", "integrated_tests"))
+    it.REF_TESTS = pathlib.Path(root)
+    it.MISMIP_MOD_DIR = it.REF_TESTS / "idealised/MISMIP_mod"
+    it.ANT_CFG = it.REF_TESTS / ("realistic/Antarctica/initialisation/"
+                                 "Ant_init_20kyr_invBMB_invfric_40km/"
+                                 "config.cfg")
+    return root
+
+
+def validation_integrated_job(workdir, out_path):
+    """The quick tier in a process of its own on the card (started with
+    phase 10's CPU runs, so that its runs, host-bound as the others, go on
+    beside phases 10-19): the stand-ins, program.main(["integrated_tests", ...]), then
+    diva_apply on the quick MISMIP+ run's last apply and heat_columns on
+    the Halfar run's last call against their plain versions; everything
+    saved to out_path for phase 35 to hold. One torch thread at the
+    lowest priority: the host's cores go first to the phases beside it,
+    whose times the script reports; it has until phase 35."""
+    from ufemism2_tpu_torch.ops import (cuda_bpa, cuda_heat, cuda_laddie,
+                                        cuda_spmv)
+    os.nice(19)
+    torch.set_num_threads(1)
+    for m in (cuda_spmv, cuda_heat, cuda_bpa, cuda_laddie):
+        m.load_kernels()           # the libraries the parent built
+    point_harness(workdir)
+    per, kept, entries, runs = validation_integrated(
+        os.path.join(workdir, "scoreboard_integrated"))
+    A, x = kept["diva"]
+    cases = {"diva": diva_check(
+        "diva_apply_validation_mismipplus_quick_last_apply", A, x),
+        "heat": heat_case("heat_columns_validation_halfar_last_step",
+                          kept["heat"])}
+    torch.save(dict(per=per, entries=entries, runs=runs, cases=cases),
+               out_path)
+
+
+def stop_job(proc, workdir=None):
+    """Kill `proc` if it still runs; remove workdir."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    if workdir is not None:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def start_validation_job(workdir):
+    """validation_integrated_job in a process of its own on the card."""
+    path = os.path.join(workdir, "validation_integrated.pt")
+    return start_cpu_job("validation_integrated_job", workdir, path), path
+
+
+def validation_demo(res=20e3):
+    """The demo model, both variants, on the card against the CPU: 20 model
+    years, a remap onto a finer mesh, a restart round trip and 5 years
+    more."""
+    from ufemism2_tpu_torch.core.mesh_data import build_mesh_data
+    from ufemism2_tpu_torch.mesh import build_uniform_mesh
+    from ufemism2_tpu_torch.models.demo import DemoModel
+    m1 = build_uniform_mesh(-100e3, 100e3, -100e3, 100e3, res)
+    m2 = build_uniform_mesh(-100e3, 100e3, -100e3, 100e3, 0.75 * res)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for choice in ("a", "b"):
+            ends = {}
+            for dev in ("cpu", "cuda"):
+                md1 = build_mesh_data(m1, torch.float64, device=dev)
+                md2 = build_mesh_data(m2, torch.float64, device=dev)
+                demo = DemoModel(choice)
+                s = demo.run(demo.initialise(md1), 20.0)
+                s = demo.remap(s, m1, m2, md2)
+                path = os.path.join(d, f"demo_{choice}_{dev}.nc")
+                demo.write_restart(path, m2, s)
+                s2 = demo.read_restart(path, md2)
+                assert torch.equal(s2.phi, s.phi) and s2.t == s.t
+                ends[dev] = demo.run(s2, 25.0)
+                assert ends[dev].phi.device.type == dev
+            a, b = ends["cpu"].phi, ends["cuda"].phi.cpu()
+            gap = float((a - b).abs().max() / a.abs().max())
+            out[choice] = dict(rel_gap=gap, bit_equal=bool(torch.equal(a, b)),
+                               t=ends["cuda"].t)
+    say("validation_demo", nV=[m1.nV, m2.nV], **out)
+    assert out["a"]["rel_gap"] <= DEMO_TOL_A, out
+    assert out["b"]["bit_equal"], out
+    return out
+
+
+def validation_sanitizer(regions=None):
+    """do_check_for_NaN on the card: a SMALL region on the card and on the
+    CPU (`regions` by device, or built here) passes clean, then, with a
+    NaN put into the ice thickness at its thickest vertex and the check
+    on, raises NaNDetected after its next dispatch, naming the same fields
+    on both."""
+    from ufemism2_tpu_torch.config import Config
+    from ufemism2_tpu_torch.main.region import ModelRegion
+    from ufemism2_tpu_torch.mesh import build_mesh_from_config
+    from ufemism2_tpu_torch.utils.sanitizer import (NaNDetected,
+                                                    check_state_for_nan)
+    C = Config(**dict(SMALL, do_check_for_NaN=True))
+    if regions is None:
+        mesh = build_mesh_from_config(C, "ANT")
+        regions = {dev: ModelRegion(C, "ANT", mesh=mesh, device=dev)
+                   for dev in ("cpu", "cuda")}
+    msgs = {}
+    for dev, r in regions.items():
+        r.C = C        # SMALL with the check on
+        check_state_for_nan(r.state)
+        top = int(r.state.Hi.argmax())
+        Hi = r.state.Hi.clone()
+        Hi[top] = float("nan")
+        r.state = r.state.replace(Hi=Hi)
+        try:
+            r.run_to(r.time + SMALL_YR)
+            msgs[dev] = None
+        except NaNDetected as e:
+            msgs[dev] = str(e)
+    say("validation_sanitizer", message_card=msgs["cuda"],
+        message_cpu=msgs["cpu"])
+    assert msgs["cuda"] is not None and msgs["cuda"] == msgs["cpu"], msgs
+    assert "'Hi'" in msgs["cuda"]
+
+
+def validation_tools(out_dir):
+    """tools/ on a program.main output directory of this run: Run's meshes,
+    fields and times, diagnose_run's summary, analyse_resources' top
+    routines."""
+    from ufemism2_tpu_torch.tools import analyse_resources, diagnose_run
+    from ufemism2_tpu_torch.tools.run import Run
+    t0 = time.perf_counter()
+    run = Run(os.path.join(out_dir, "ANT"))
+    mo = run.get_mesh(-1)
+    Hi = mo.read("Hi", -1)
+    scal = run.scalars()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        diagnose_run.main([os.path.join(out_dir, "ANT")])
+    recs = analyse_resources.load_records(
+        os.path.join(out_dir, "resource_tracking.jsonl"))
+    agg = analyse_resources.aggregate(recs)
+    top = sorted(agg.items(), key=lambda kv: -kv[1][0])[:5]
+    say("validation_tools", dir=os.path.basename(out_dir),
+        meshes=run.n_meshes, nV=mo.nV, times=[float(t) for t in mo.time],
+        variables=mo.variables, Hi_max=float(np.nanmax(Hi)),
+        scalars=sorted(scal), final_ice_volume=float(scal["ice_volume"][-1]),
+        intervals=len(recs),
+        top_routines=[[k, tc, nc] for k, (tc, nc) in top],
+        diagnose_lines=len(buf.getvalue().splitlines()),
+        seconds=time.perf_counter() - t0)
+    assert run.regions == ["ANT"] and run.n_meshes >= 1
+    assert len(mo.time) >= 2 and np.isfinite(Hi).all() and Hi.max() > 0
+    assert "final scalars:" in buf.getvalue() and len(recs) >= 1
+    assert any(k.endswith("run_model_region") for k, _ in top)
+
+
+def validation_phase(workdir, job, tools_dir=None):
+    """Phase 35: the component tests through program.main on the card,
+    the quick tier's results from its process (`job`, started by
+    start_validation_job) held, the demo model, the NaN sanitizer and
+    (given an output directory of program.main) the run tools. Returns
+    the launches by path and the kernel cases of the tier's last calls."""
+    t0 = time.perf_counter()
+    launches = {"validation_mass_conservation": validation_component(
+        os.path.join(workdir, "scoreboard_component"))}
+    validation_demo()
+    if tools_dir is not None:       # --validation-only
+        validation_sanitizer()
+        validation_tools(tools_dir)
+    proc, path = job
+    t_wait = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=1200)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert rc == 0, "the quick tier's process on the card failed"
+    waited = time.perf_counter() - t_wait
+    # a file this script's own child process wrote
+    res = torch.load(path, weights_only=False)
+    check_integrated(res["per"], res["entries"], res["runs"])
+    for name, path_name in VAL_PATHS.items():
+        launches[path_name] = res["per"][name]
+    for c in res["cases"].values():
+        say("validation_case", **c)
+    say("validation", seconds=time.perf_counter() - t0,
+        waited_for_quick_tier_s=waited)
+    return launches, res["cases"]
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
@@ -5131,6 +5621,9 @@ def main():
     ap.add_argument("--multidevice-only", action="store_true",
                     help="build the kernels and the 8 km mesh and run the "
                          "multidevice phase alone (no result line)")
+    ap.add_argument("--validation-only", action="store_true",
+                    help="build the kernels and run the validation "
+                         "harness's phase 35 alone (no result line)")
     ap.add_argument("--ant-init-years", type=float, default=ANT_INIT_YEARS,
                     metavar="Y", help="antarctica_init's window in model "
                     "years (pins held only at the default)")
@@ -5183,6 +5676,23 @@ def main():
             nums, (cases, steps) = laddie_phases(workdir)
             say("laddie_kernel_entry", **laddie_kernel_entry(nums, cases,
                                                              steps))
+        say("done", seconds=time.perf_counter() - t_start)
+        return 0
+    if args.validation_only:
+        with tempfile.TemporaryDirectory() as workdir:
+            # an output directory of program.main for the run tools:
+            # MP_SMALL on the card, a few seconds
+            cfg = write_namelist(os.path.join(workdir, "tools_run.cfg"),
+                                 MP_SMALL)
+            tools_dir = os.path.join(workdir, "tools_run")
+            job = start_validation_job(workdir)
+            try:
+                from ufemism2_tpu_torch.main import program
+                with contextlib.redirect_stdout(sys.stderr):
+                    program.main([cfg, "--output-dir", tools_dir])
+                validation_phase(workdir, job, tools_dir)
+            finally:
+                stop_job(job[0])
         say("done", seconds=time.perf_counter() - t_start)
         return 0
     if args.multidevice_only:
@@ -5291,7 +5801,9 @@ def main():
     try:
         # -- 5. small configuration: card (kernels) against CPU (plain) ----
         mesh_s_small = build_mesh_from_config(Config(**SMALL), "ANT")
-        small_phase("small", Config(**SMALL), mesh_s_small)
+        # 35's NaN sanitizer on this phase's two regions once they are done
+        small_phase("small", Config(**SMALL), mesh_s_small,
+                    then=validation_sanitizer)
         small_phase("small_thermo", Config(**SMALL_THERMO), mesh_s_small)
         with tempfile.TemporaryDirectory() as workdir:
             small_mismipplus_phase(workdir)
@@ -5331,6 +5843,20 @@ def main():
     # 40 km card against CPU, 19. thermodynamics and SMB from files; the
     # CPU runs that 13, 14, 16, 17 and 18 are held to go on beside the
     # card's runs from the start of 10, one thread each
+    # 35's quick tier: a process of its own on the card from here on, its
+    # host-bound runs beside those of 10-19 as the CPU jobs are (stopped
+    # and removed however the run ends)
+    val_dir = tempfile.mkdtemp()
+    val_job = start_validation_job(val_dir)
+    atexit.register(stop_job, val_job[0], val_dir)
+    # 26-33 (Antarctica, the climate chain, antarctica_hydro and the
+    # LADDIE slice): a card job from here on, beside 10-25
+    ant_dir = tempfile.mkdtemp()
+    atexit.register(shutil.rmtree, ant_dir, True)
+    ant_out = os.path.join(ant_dir, "antarctica_laddie.pt")
+    ant_job = start_card_job("antarctica_laddie_job", ant_dir, ant_out,
+                             repr(args.ant_init_years))
+    atexit.register(stop_card_job, ant_job)
     with tempfile.TemporaryDirectory() as workdir:
         jobs = dict(
             small_remesh=start_small_remesh_cpu(workdir),
@@ -5343,6 +5869,8 @@ def main():
             mp_dir = os.path.join(workdir, "mismipplus")
             os.makedirs(mp_dir)
             mp_region, mp_last, mp = mismipplus_phase(mp_dir)
+            # 35's run tools, on this phase's output directory
+            validation_tools(os.path.join(mp_dir, "mismipplus_out"))
             mp_A = mp_last["A"]
             diva_cases.append(diva_check("diva_apply_mismipplus_last_apply",
                                          mp_A, torch.cat(mp_last["x"])))
@@ -5367,14 +5895,24 @@ def main():
     # -- 20-25. ISMIP-HOM: BPA and the hybrid DIVA/BPA ----------------------
     with tempfile.TemporaryDirectory() as workdir:
         ih_nums, ih_kernels = bpa_slice_finish(ih, workdir)
-    # -- 26-28. the realistic Antarctica stand-in, the climate chain ------
-    # -- 29-33. the LADDIE slice: MISOMIP iceocean1r, the laddie_stage
-    # cases, the standalone plume, small_iceocean and small_hydro; and
-    # antarctica_hydro (in antarctica_phases, from 26's restart)
-    with tempfile.TemporaryDirectory() as workdir:
-        ant_init, ant_itm, (init_cases, itm_cases), (ant_hydro, small) = \
-            antarctica_phases(workdir, args.ant_init_years)
-        lad_nums, (lad_cases, lad_steps) = laddie_phases(workdir, small)
+    # -- 26-28. the realistic Antarctica stand-in, the climate chain, and
+    # antarctica_hydro (from 26's restart); 29-33. the LADDIE slice:
+    # MISOMIP iceocean1r, the laddie_stage cases, the standalone plume,
+    # small_iceocean and small_hydro (on 28's 80 km data): the card job's
+    # results ------------------------------------------------------------
+    ((ant_init, ant_itm, (init_cases, itm_cases), (ant_hydro, _)),
+     (lad_nums, (lad_cases, lad_steps))), ant_wait_s = finish_card_job(
+        ant_job, ant_out, "antarctica_laddie_job")
+    say("antarctica_laddie_job_wait", seconds=ant_wait_s)
+    shutil.rmtree(ant_dir, ignore_errors=True)
+    # -- 35. the validation harness: component and quick integrated tests
+    # through program.main, the demo model, the NaN sanitizer ------------
+    try:
+        val_launches, val_cases = validation_phase(val_dir, val_job)
+    finally:
+        stop_job(val_job[0], val_dir)
+    diva_cases.append(val_cases["diva"])
+    heat_cases.append(val_cases["heat"])
     diva_cases += [init_cases["diva"], itm_cases["diva"]]
     cases.append(init_cases["stack"])
     heat_cases += [init_cases["heat"], itm_cases["heat"]]
@@ -5468,6 +6006,8 @@ def main():
     for i, key in ((0, "stack_spmv_launches"), (1, "diva_apply_launches"),
                    (2, "heat_columns_launches")):
         kernels[i]["launches_by_path"].update(md_launches[key])
+        kernels[i]["launches_by_path"].update(
+            {path: c[key] for path, c in val_launches.items()})
     cases += [c for c in md_cases if c["kernel"] == "stack_spmv"]
     diva_cases += [c for c in md_cases if c["kernel"] == "diva_apply"]
     kernels.append(laddie_kernel_entry(lad_nums, lad_cases, lad_steps))

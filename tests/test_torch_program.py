@@ -117,19 +117,19 @@ def test_output_files_as_jax(runs):
 
 
 def test_default_device_and_other_commands(runs, tmp_path):
-    """The card unless --device says otherwise: without one the run
-    raises before it writes anything; the subcommands that are not ported
-    say which part of the roadmap they wait for, and 'laddie' needs its
-    config."""
+    """The card unless --device says otherwise: without one the run, and
+    the validation harness's subcommands, raise before they write
+    anything; 'laddie' needs its config."""
     _, cfg, _, _ = runs
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tprog.main([str(cfg), "--output-dir", str(tmp_path / "x")])
         assert not (tmp_path / "x").exists()
-    for cmd, word in (("component_tests", "A.20"),
-                      ("integrated_tests", "A.20")):
-        with pytest.raises(NotImplementedError, match=word):
-            tprog.main([cmd])
+        for cmd in ("component_tests", "integrated_tests",
+                    "integrated_tests_full"):
+            with pytest.raises(RuntimeError, match="cuda"):
+                tprog.main([cmd, "--output-dir", str(tmp_path / cmd)])
+            assert not (tmp_path / cmd).exists()
     # the standalone plume is ported; without its config it is a usage
     # error
     with pytest.raises(SystemExit):

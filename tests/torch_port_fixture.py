@@ -426,3 +426,166 @@ def climate_state(mesh, rng, scale=1.0):
     return (SimpleNamespace(**{k: jnp.asarray(v) for k, v in f.items()}),
             SimpleNamespace(**{k: torch.from_numpy(v.copy())
                                for k, v in f.items()}))
+
+
+# -- stand-ins for the validation harness's configs -------------------------
+# The reference's integrated-test configs, which the harness reads from
+# its REF_TESTS, MISMIP_MOD_DIR and ANT_CFG, are not in the repository.
+# The parity tests of the harness write small stand-ins in the reference's
+# layout into a temporary directory and point both packages' harness at
+# it (`point_harness_at`): a few hundred vertices at most, a few model
+# years, fixed meshes.
+
+def _literal(v):
+    if isinstance(v, bool):
+        return ".TRUE." if v else ".FALSE."
+    if isinstance(v, str):
+        return f"'{v}'"
+    return repr(float(v)) if isinstance(v, float) else str(v)
+
+
+def write_namelist(path, values, comment="stand-in"):
+    """A reference-style namelist: `&CONFIG`, one `key_config = value`
+    line each, `/`."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    lines = [f"! {comment}", "&CONFIG"] \
+        + [f"  {k}_config = {_literal(v)}" for k, v in values.items()] \
+        + ["/"]
+    path.write_text("\n".join(lines) + "\n")
+    return path
+
+
+ANT_CFG_REL = ("realistic/Antarctica/initialisation/"
+               "Ant_init_20kyr_invBMB_invfric_40km/config.cfg")
+
+
+def point_harness_at(monkeypatch, root):
+    """REF_TESTS, MISMIP_MOD_DIR and ANT_CFG of both packages' harness set
+    to the stand-ins under `root`."""
+    from ufemism2_tpu.validation import integrated_tests as jit
+    from ufemism2_tpu_torch.validation import integrated_tests as tit
+    for m in (jit, tit):
+        monkeypatch.setattr(m, "REF_TESTS", root)
+        monkeypatch.setattr(m, "MISMIP_MOD_DIR",
+                            root / "idealised/MISMIP_mod")
+        monkeypatch.setattr(m, "ANT_CFG", root / ANT_CFG_REL)
+
+
+def write_standins(root, files):
+    """Write {path under root: values} as namelists; returns root."""
+    for rel, values in files.items():
+        write_namelist(root / rel, values)
+    return root
+
+
+# the Halfar dome of tests/test_halfar.py, coarser (150 km, 100 km at the
+# margin), SIA, with the schema's 3-D heat equation
+H_HALFAR = dict(
+    choice_refgeo_init_ANT="idealised", choice_refgeo_init_idealised="Halfar",
+    dx_refgeo_init_idealised=50e3,
+    refgeo_idealised_Halfar_H0=3000.0, refgeo_idealised_Halfar_R0=500e3,
+    uniform_Glens_flow_factor=1e-16, choice_ice_rheology_Glen="uniform",
+    choice_stress_balance_approximation="SIA",
+    choice_sliding_law="no_sliding",
+    xmin_ANT=-750e3, xmax_ANT=750e3, ymin_ANT=-750e3, ymax_ANT=750e3,
+    maximum_resolution_uniform=150e3, maximum_resolution_grounded_ice=150e3,
+    maximum_resolution_ice_front=100e3, ice_front_width=100e3,
+    start_time_of_run=0.0, end_time_of_run=2.0,
+    nit_Lloyds_algorithm=2, refgeo_Hi_min=2.0, allow_mesh_updates=False,
+    choice_SMB_model_ANT="uniform", uniform_SMB=0.0,
+)
+# Schoof's (2006) ice stream with the parameters of Bueler and Brown
+# (2009, J. Geophys. Res. 114, F03008, test I): H 2000 m, surface slope
+# 0.001, L 40 km, m 10; A = B^-3 with B = 3.7e8 Pa s^1/3
+H_SSA = dict(
+    choice_refgeo_init_ANT="idealised",
+    choice_refgeo_init_idealised="SSA_icestream",
+    refgeo_idealised_SSA_icestream_Hi=2000.0,
+    refgeo_idealised_SSA_icestream_dhdx=-0.001,
+    refgeo_idealised_SSA_icestream_L=40e3,
+    refgeo_idealised_SSA_icestream_m=10.0,
+    choice_ice_rheology_Glen="uniform",
+    uniform_Glens_flow_factor=(3.7e8) ** -3 * 31556926.0,
+    choice_stress_balance_approximation="SSA",
+    choice_sliding_law="idealised",
+    choice_idealised_sliding_law="SSA_icestream",
+    choice_thermo_model="none", choice_initial_ice_temperature_ANT="uniform",
+    choice_SMB_model_ANT="uniform", uniform_SMB=0.0,
+    BC_u_west="infinite_SSA_icestream", BC_v_west="infinite_SSA_icestream",
+    BC_u_east="infinite_SSA_icestream", BC_v_east="infinite_SSA_icestream",
+    BC_u_north="zero", BC_v_north="zero",
+    BC_u_south="zero", BC_v_south="zero",
+    xmin_ANT=-150e3, xmax_ANT=150e3, ymin_ANT=-150e3, ymax_ANT=150e3,
+    maximum_resolution_uniform=50e3, maximum_resolution_grounded_ice=50e3,
+    start_time_of_run=0.0, end_time_of_run=0.1,
+    nit_Lloyds_algorithm=2, allow_mesh_updates=False,
+    visc_it_nit=100, visc_it_norm_dUV_tol=1e-4,
+)
+
+
+def h_ismip(approximation, L_km=160):
+    """ISMIP-HOM A at L_km on a 4 x 4 km... mesh of L/4: ismip_hom()
+    with the approximation of the harness's file name, one 0.1-year step."""
+    approx = {"SIASSA": "SIA/SSA"}.get(approximation, approximation)
+    return ismip_hom("A", L=L_km * 1e3, res=L_km * 1e3 / 4,
+                     choice_stress_balance_approximation=approx,
+                     start_time_of_run=0.0, end_time_of_run=0.1)
+
+
+# the MISMIP+ configuration above, 0.3 years, as the spin-up stand-in
+H_MISMIPPLUS = dict(MISMIPPLUS, refgeo_idealised_MISMIPplus_tune_A=True,
+                    start_time_of_run=0.0, end_time_of_run=0.3,
+                    dt_coupling=0.1)
+
+
+STABILITY = ("n_dt_ice", "n_visc_its", "n_Axb_its")
+
+
+def assert_same_scores(run_t, run_j, rel=1e-10):
+    """Two scoreboard runs of the same test: the same name, category and
+    cost functions, every value within `rel` of the larger (NaN equal to
+    NaN), the stability counters equal."""
+    import math
+    assert (run_t.name, run_t.category) == (run_j.name, run_j.category)
+    ct = {c["name"]: c for c in run_t.cost_functions}
+    cj = {c["name"]: c for c in run_j.cost_functions}
+    assert list(ct) == list(cj)
+    for name, c in ct.items():
+        a, b = c["value"], cj[name]["value"]
+        assert c["definition"] == cj[name]["definition"]
+        if name in STABILITY:
+            assert a == b, (name, a, b)
+        elif math.isnan(a) or math.isnan(b):
+            assert math.isnan(a) and math.isnan(b), (name, a, b)
+        else:
+            assert abs(a - b) <= rel * max(abs(a), abs(b)), (name, a, b)
+
+
+def scores(run):
+    return {c["name"]: c["value"] for c in run.cost_functions}
+
+
+# Berends et al. (2023) experiment I's spin-up stand-in: the Halfar dome
+# (the target and the initial geometry) on the +-700 km domain of the
+# harness's input grid, DIVA with Zoet-Iverson sliding on the till friction
+# angle the harness writes, the SMB it writes, nudging every 0.1 years
+H_BERENDS_I = dict(
+    H_HALFAR, choice_thermo_model="none",
+    choice_initial_ice_temperature_ANT="uniform",
+    choice_refgeo_PD_ANT="idealised", choice_refgeo_PD_idealised="Halfar",
+    choice_stress_balance_approximation="DIVA",
+    choice_sliding_law="Zoet-Iverson", choice_SMB_model_ANT="prescribed",
+    xmin_ANT=-700e3, xmax_ANT=700e3, ymin_ANT=-700e3, ymax_ANT=700e3,
+    visc_it_nit=3, pc_nit_max=2, bed_roughness_nudging_dt=0.1,
+    start_time_of_run=0.0)
+# experiment II's: the MISMIP+ configuration above with Zoet-Iverson
+# sliding, nudging and BMB events every 0.1 years
+H_BERENDS_II = dict(MISMIPPLUS, choice_sliding_law="Zoet-Iverson",
+                    bed_roughness_nudging_dt=0.1, dt_BMB=0.1,
+                    start_time_of_run=0.0)
+BERENDS_DIR = "idealised/Berends2023_nudging"
+BERENDS_STANDINS = {
+    f"{BERENDS_DIR}/experiment_I/config_01_exp_I_spinup_40km_part0.cfg":
+        H_BERENDS_I,
+    f"{BERENDS_DIR}/experiment_II/config_01_exp_II_spinup_5km.cfg":
+        H_BERENDS_II}

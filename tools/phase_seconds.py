@@ -7,7 +7,11 @@ Reads the JSON lines a run printed; every line with an `at_s` stamp (the
 script's clock when it was printed) is charged the seconds since the line
 before it, under its `phase` (or its `case`). Phases are summed into the
 groups of GROUPS (a phase goes to the group of its longest prefix there),
-each run in a column; the last row is the whole run.
+each run in a column; the last row is the whole run (the last stamp). The
+lines of a card job (a `job` key: phases run in a process of their own
+beside the script's) are charged on their own, since the job's line before,
+in rows of their own marked with the job's name; those rows overlap the
+script's and are not part of its sum.
 """
 import json
 import sys
@@ -49,8 +53,8 @@ def group_of(key):
 
 
 def phase_seconds(path):
-    """{group: seconds} of one run's output."""
-    out, prev = {}, 0.0
+    """{group: seconds} of one run's output, and "whole run"."""
+    out, prev, last = {}, {None: 0.0}, 0.0
     with open(path) as f:
         for line in f:
             line = line.strip()
@@ -62,23 +66,29 @@ def phase_seconds(path):
                 continue
             if "at_s" not in d:
                 continue
+            job = d.get("job")
             g = group_of(d.get("phase") or d.get("case") or "")
-            out[g] = out.get(g, 0.0) + d["at_s"] - prev
-            prev = d["at_s"]
+            if job is not None:
+                g = f"{g} (card job {job})"
+            out[g] = out.get(g, 0.0) + d["at_s"] - prev.get(job, d["at_s"])
+            prev[job] = d["at_s"]
+            if job is None:
+                last = d["at_s"]
+    out["whole run"] = last
     return out
 
 
 def main(paths):
     runs = [phase_seconds(p) for p in paths]
     names = [n for n, _ in GROUPS] + ["other"]
+    names += sorted({n for r in runs for n in r
+                     if n not in names and n != "whole run"})
     print("| group | " + " | ".join(paths) + " |")
     print("| --- |" + " --- |" * len(paths))
-    for n in names:
+    for n in names + ["whole run"]:
         if any(n in r for r in runs):
             print(f"| {n} | " + " | ".join(f"{r.get(n, 0.0):.1f}"
                                           for r in runs) + " |")
-    print("| whole run | " + " | ".join(f"{sum(r.values()):.1f}"
-                                        for r in runs) + " |")
 
 
 if __name__ == "__main__":

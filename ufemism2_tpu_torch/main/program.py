@@ -3,7 +3,10 @@
 Re-design of src/UFEMISM/main/UFEMISM_program.f90: run up to four model
 regions (NAM/EAS/GRL/ANT) through the coupling loop, with the MISMIP+
 flow-factor tuning between coupling intervals, the standalone LADDIE
-plume (main/laddie_program.py), or the port's unit tests.
+plume (main/laddie_program.py), the port's unit tests, or the validation
+harness (validation/: the component tests and the integrated tests, each
+run writing its scoreboard entry into --output-dir, `scoreboard` by
+default).
 
 Usage:
     python -m ufemism2_tpu_torch <config.cfg> [--output-dir DIR] [--device cpu]
@@ -12,6 +15,8 @@ Usage:
     python -m ufemism2_tpu_torch laddie <config.cfg> [--output-dir DIR]
         [--device cpu]
     python -m ufemism2_tpu_torch unit_tests
+    python -m ufemism2_tpu_torch component_tests|integrated_tests|
+        integrated_tests_full [--output-dir DIR] [--device cpu]
 
 The run writes a copy of the config, run_manifest.json and
 resource_tracking.jsonl into the output directory, and each region's
@@ -36,7 +41,6 @@ import argparse
 import json
 import os
 import platform
-import subprocess
 import sys
 import time as _time
 from pathlib import Path
@@ -49,22 +53,10 @@ from ..config import load_config
 from ..models.forcings import GlobalForcings
 from ..ops import resolve_device
 from ..utils.logging_utils import happy, get_tracker
+from ..validation.scoreboard import git_hash
 
 
 REGIONS = ["NAM", "EAS", "GRL", "ANT"]
-
-
-def git_hash(short=True) -> str:
-    """The repository's commit, or 'nogit' outside a git checkout."""
-    try:
-        out = subprocess.run(
-            ["git", "rev-parse", "--short" if short else "HEAD", "HEAD"],
-            capture_output=True, text=True, timeout=10,
-            cwd=Path(__file__).resolve().parents[2])
-        h = out.stdout.strip()
-        return h if h else "nogit"
-    except Exception:
-        return "nogit"
 
 
 def write_run_manifest(out_dir, config_path, device):
@@ -268,9 +260,9 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="ufemism2_tpu_torch",
                                 description=__doc__.split("\n\n")[0])
     p.add_argument("config", help="path to a .cfg namelist, 'laddie' (the "
-                   "standalone plume; its config follows) or 'unit_tests' "
-                   "(component_tests and integrated_tests are not ported "
-                   "yet)")
+                   "standalone plume; its config follows), 'unit_tests', "
+                   "'component_tests', 'integrated_tests' (the quick tier) "
+                   "or 'integrated_tests_full'")
     p.add_argument("laddie_config", nargs="?", default=None,
                    help="config path when the first argument is 'laddie'")
     p.add_argument("--output-dir", default=None)
@@ -291,11 +283,15 @@ def main(argv=None):
         tests = Path(__file__).resolve().parents[2] / "tests"
         sys.exit(pytest.main(["-x", "-q"] + sorted(
             str(f) for f in tests.glob("test_torch_*.py"))))
-    if args.config in ("component_tests", "integrated_tests",
-                       "integrated_tests_full"):
-        raise NotImplementedError(
-            f"'{args.config}': the validation harness is not ported yet "
-            "(ROADMAP A.20)")
+    if args.config == "component_tests":
+        from ..validation.component_tests import run_all_component_tests
+        return run_all_component_tests(args.output_dir or "scoreboard",
+                                       device=args.device)
+    if args.config in ("integrated_tests", "integrated_tests_full"):
+        from ..validation.integrated_tests import run_all_integrated_tests
+        return run_all_integrated_tests(
+            args.output_dir or "scoreboard",
+            quick=args.config == "integrated_tests", device=args.device)
     if args.config == "laddie":
         if not args.laddie_config:
             p.error("'laddie' needs the path of a config")

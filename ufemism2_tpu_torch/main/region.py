@@ -70,6 +70,7 @@ from ..io.output_files import (LINE_FIELDS, MESH_FIELDS_DEFAULT,
 from ..remap import get_map
 from ..remap.conservative import build_map_nearest
 from ..ops import resolve_device
+from ..utils.sanitizer import check_state_for_nan
 from ..models.smb import make_run_smb
 from ..models.bmb import make_run_bmb
 from ..models.lmb import make_run_lmb
@@ -846,6 +847,14 @@ class ModelRegion:
                         # a single step with no thermodynamics catch-up,
                         # as the reference's run_to takes it
                         step(False)
+                    if C.do_check_for_NaN:
+                        # the reference's do_check_for_NaN: scan every
+                        # state field after the dispatch and crash naming
+                        # the offenders (a sharded dispatch has gathered
+                        # the whole state on every rank, so every rank
+                        # checks it all and raises alike)
+                        check_state_for_nan(self.state,
+                                            where=f"t={self.time:.3f}")
 
                 # advance region time to next action
                 t_candidates = [self.state.t_Hi_next]

@@ -33,7 +33,10 @@ inputs of the climate chain:
                  Wind_WE, Wind_SN); the cold one a larger, colder and
                  drier ice sheet.
 
-Every file goes into the directory the caller names.
+Every file goes into the directory the caller names; `ensure_data` writes
+them into DATA_DIR (the repository's git-ignored validation_runs/, a
+directory of the port's own beside the JAX generator's) unless the five
+files of the realistic initialisation are there already.
 """
 
 import argparse
@@ -44,6 +47,9 @@ import numpy as np
 
 from ..io.ncio import NCFile
 from ..utils.constants import ice_density, seawater_density
+
+DATA_DIR = Path(__file__).resolve().parents[2] / "validation_runs" / \
+    "ant_data_classic"
 
 XMIN, XMAX = -3040e3, 3040e3
 S0 = 3900.0          # [m] dome summit surface elevation
@@ -284,6 +290,19 @@ def write_all(data_dir, dx=20e3):
                          T2m=base["T2m"] - 9.0 - 0.0085 * (Hs_cold - Hs),
                          Precip=base["Precip"] * 0.6))
     return paths
+
+
+INIT_KEYS = ("topo", "climate", "SMB", "dHdt", "ghf")
+
+
+def ensure_data(dx=20e3, data_dir=None):
+    """The synthetic dataset in data_dir (DATA_DIR by default), written
+    only if one of the realistic initialisation's five files is absent;
+    returns {key: path} (the five keys, and all of NAMES when written)."""
+    data_dir = Path(DATA_DIR if data_dir is None else data_dir)
+    if all((data_dir / NAMES[k]).exists() for k in INIT_KEYS):
+        return {k: data_dir / NAMES[k] for k in INIT_KEYS}
+    return write_all(data_dir, dx)
 
 
 def main(argv=None):
